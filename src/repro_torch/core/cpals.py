@@ -1,0 +1,202 @@
+"""CP-ALS (paper Algorithm 1) with pluggable MTTKRP engines, in PyTorch
+(counterpart of `repro.core.cpals`).
+
+Everything except MTTKRP — Gram matrices, Hadamard products, the
+pseudo-inverse solve, normalization, the fit — is dense float32 work on the
+engine's device.  The engine is any backend name registered in
+`repro_torch.engine` (`ref`, `chunked`, `kernel`), an `Engine` from
+`build_engine`, or a callable ``f(factors, mode) -> (I_mode, R)``.
+
+Normalization is L-infinity by default (paper §IV-C); L2 is available.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from collections.abc import Callable
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .sptensor import SparseTensor
+
+__all__ = [
+    "CPResult",
+    "avg_abs_diff",
+    "cp_als",
+    "fit_value",
+    "init_factors",
+    "reconstruct_nnz",
+]
+
+
+@dataclasses.dataclass
+class CPResult:
+    factors: list[torch.Tensor]
+    lam: torch.Tensor
+    fit_history: list[float]
+    diff_history: list[float]
+    iter_times: list[float]
+    engine: str
+
+
+def init_factors(shape, rank: int, seed: int = 0, *,
+                 device: str | torch.device | None = None) -> list[torch.Tensor]:
+    """Random init in [0, 1), drawn exactly as the reference draws it."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.uniform(0, 1, size=(d, rank)).astype(np.float32)).to(device)
+            for d in shape]
+
+
+def _normalize(f: torch.Tensor, norm: str):
+    if norm == "linf":
+        lam = f.abs().amax(dim=0)
+    elif norm == "l2":
+        lam = torch.linalg.vector_norm(f, dim=0)
+    else:
+        raise ValueError(norm)
+    lam = torch.where(lam == 0, 1.0, lam)
+    return f / lam, lam
+
+
+def _pinv(v: torch.Tensor) -> torch.Tensor:
+    """Pseudo-inverse with the cutoff of `jnp.linalg.pinv`, 10·max(m, n)·eps
+    relative to the largest singular value (torch's default is 10× lower)."""
+    return torch.linalg.pinv(v, rtol=10 * max(v.shape) * torch.finfo(v.dtype).eps)
+
+
+def _coo_tensors(st: SparseTensor, device: torch.device):
+    return (torch.from_numpy(st.coords).to(device), torch.from_numpy(st.values).to(device))
+
+
+def reconstruct_nnz(factors, lam, coords) -> torch.Tensor:
+    """x̂ at the given coordinates: Σ_r λ_r ∏_m F_m[c_m, r]."""
+    prod = lam[None, :]
+    for m, f in enumerate(factors):
+        prod = prod * f.index_select(0, coords[:, m])
+    return prod.sum(dim=1)
+
+
+def avg_abs_diff(st: SparseTensor, factors, lam, *, dense_limit: int = 1 << 22,
+                 coo=None) -> float:
+    """Paper Fig. 6 metric: mean |X - X̂| over all elements when the tensor is
+    small enough (and has at most 7 modes), else over the nonzeros only.
+    `coo` is (coords, values) already on the factors' device, to spare a
+    copy per call."""
+    device = lam.device
+    if math.prod(st.shape) <= dense_limit and st.ndim <= 7:
+        dense = torch.from_numpy(st.to_dense()).to(device)
+        letters = "abcdefg"[: st.ndim]
+        sub = ",".join(f"{c}r" for c in letters)
+        approx = torch.einsum(f"r,{sub}->{letters}", lam, *factors)
+        return float((dense - approx).abs().mean())
+    coords, values = coo if coo is not None else _coo_tensors(st, device)
+    approx = reconstruct_nnz(factors, lam, coords)
+    return float((values - approx).abs().mean())
+
+
+def fit_value(st: SparseTensor, factors, lam, mlast=None, last_mode=None, *,
+              coo=None) -> float:
+    """fit = 1 - ||X - X̂||_F / ||X||_F, using the sparse identity
+    ||X - X̂||² = ||X||² - 2<X, X̂> + ||X̂||².  With `mlast`, the last mode's
+    MTTKRP output, <X, X̂> = Σ λ_r Σ_i M[i,r]·F_last[i,r] skips the O(nnz·R)
+    reconstruction (exact engines only).  One host readout."""
+    norm_x2 = st.norm() ** 2
+    had = lam[:, None] * lam[None, :]
+    for f in factors:
+        had = had * (f.T @ f)
+    norm_approx2 = had.sum()
+    if mlast is not None and last_mode is not None:
+        inner = (mlast * (factors[last_mode] * lam[None, :])).sum()
+    else:
+        coords, values = coo if coo is not None else _coo_tensors(st, lam.device)
+        inner = torch.dot(reconstruct_nnz(factors, lam, coords), values)
+    resid = max(float(norm_x2 - 2.0 * inner + norm_approx2), 0.0)
+    return 1.0 - math.sqrt(resid) / max(math.sqrt(norm_x2), 1e-30)
+
+
+def _engine_device(eng, device) -> torch.device:
+    """The device a prebuilt engine runs on; a conflicting `device` raises."""
+    ctx = getattr(eng, "context", None)
+    if ctx is None:
+        return resolve_device(device)
+    if device is not None and torch.device(device) != ctx.device:
+        raise ValueError(f"engine {eng.name!r} runs on {ctx.device}, not {device}")
+    return ctx.device
+
+
+def cp_als(
+    st: SparseTensor,
+    rank: int,
+    n_iters: int = 5,
+    *,
+    engine: str | Callable = "ref",
+    norm: str = "linf",
+    seed: int = 0,
+    track_diff: bool = True,
+    tol: float | None = None,
+    device: str | torch.device | None = None,
+    **engine_kwargs,
+) -> CPResult:
+    """Decompose `st` into `rank` components by alternating least squares.
+
+    `device` None means the CUDA card (and raises where there is none);
+    a prebuilt engine brings its own.  `engine_kwargs` are `build_engine`
+    options (mem_bytes, chunk_shape, capacity, plans); the reference's
+    tuning keywords raise `NotImplementedError` (ROADMAP Queue 1 item 8).
+
+    Each iteration ends in one device synchronisation, so `iter_times` holds
+    finished work, and the fit adds one host readout."""
+    from ..engine import build_engine, validate_engine_kwargs
+
+    validate_engine_kwargs("cp_als", engine_kwargs)
+    if callable(engine):
+        if engine_kwargs:
+            raise TypeError(f"engine options {sorted(engine_kwargs)} need an engine name")
+        eng = engine
+        device = _engine_device(eng, device)
+        eng_name = getattr(engine, "name", None) or getattr(engine, "__name__", "custom")
+    else:
+        eng = build_engine(st, engine, rank, device=device, **engine_kwargs)
+        device = eng.context.device
+        eng_name = eng.name
+
+    n = st.ndim
+    factors = init_factors(st.shape, rank, seed, device=device)
+    lam = torch.ones((rank,), dtype=torch.float32, device=device)
+    spec = getattr(eng, "spec", None)
+    fit_fast = spec is not None and spec.lossless
+    coo = None if fit_fast and not track_diff else _coo_tensors(st, device)
+    fit_history, diff_history, iter_times = [], [], []
+    prev_fit = -np.inf
+    for _ in range(n_iters):
+        t0 = time.perf_counter()
+        mlast = None
+        for mode in range(n):
+            m = eng(factors, mode)
+            # A = M (∘_{k≠mode} F_kᵀF_k)†  (Alg. 1 l.5-7)
+            v = torch.ones((rank, rank), dtype=torch.float32, device=device)
+            for k in range(n):
+                if k != mode:
+                    v = v * (factors[k].T @ factors[k])
+            a, lam = _normalize(m @ _pinv(v), norm)
+            factors[mode] = a
+            mlast = m
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        iter_times.append(time.perf_counter() - t0)
+
+        f = fit_value(st, factors, lam,
+                      mlast=mlast if fit_fast else None,
+                      last_mode=n - 1 if fit_fast else None, coo=coo)
+        fit_history.append(f)
+        if track_diff:
+            diff_history.append(avg_abs_diff(st, factors, lam, coo=coo))
+        if tol is not None and abs(f - prev_fit) < tol:
+            break
+        prev_fit = f
+
+    return CPResult(factors, lam, fit_history, diff_history, iter_times, eng_name)

@@ -1,0 +1,46 @@
+"""Turn the JAX package's state, as numpy arrays, into the port's.
+
+Each function takes the reference's object (or anything with the same
+attributes) and copies nothing it does not have to: host arrays stay numpy,
+factors become float32 tensors on `device`.  Nothing here imports the JAX
+package.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.chunking import ChunkedTensor
+from .core.sptensor import SparseTensor
+from .device import resolve_device
+
+__all__ = ["chunked_from_reference", "factors_from_reference", "tensor_from_reference"]
+
+
+def tensor_from_reference(st) -> SparseTensor:
+    """A `repro.core.SparseTensor` as the port's SparseTensor."""
+    return SparseTensor(np.asarray(st.coords, dtype=np.int32),
+                        np.asarray(st.values, dtype=np.float32),
+                        tuple(int(d) for d in st.shape))
+
+
+def chunked_from_reference(ct) -> ChunkedTensor:
+    """A `repro.core.ChunkedTensor` as the port's ChunkedTensor."""
+    return ChunkedTensor(
+        np.asarray(ct.task_chunk, dtype=np.int32),
+        np.asarray(ct.coords_rel, dtype=np.int32),
+        np.asarray(ct.values, dtype=np.float32),
+        np.asarray(ct.nnz_per_task, dtype=np.int32),
+        tuple(int(s) for s in ct.chunk_shape),
+        tuple(int(d) for d in ct.tensor_shape),
+    )
+
+
+def factors_from_reference(factors, lam, device: str | torch.device | None = None):
+    """CP factors and weights (numpy or JAX arrays) as float32 tensors on
+    `device` (None → the CUDA card)."""
+    device = resolve_device(device)
+
+    def to_tensor(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+    return [to_tensor(f) for f in factors], to_tensor(lam)

@@ -1,0 +1,33 @@
+"""Public wrapper around the MTTKRP kernel (counterpart of
+`repro.kernels.ops.mttkrp_pallas`): pads factor rows to whole chunks, runs
+the per-task kernel, sums the task blocks into the chunk-padded output and
+cuts the padding off.  The TPU's rank padding to 128 lanes has no
+counterpart here.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import ref
+from .mttkrp_kernel import mttkrp_local
+
+__all__ = ["mttkrp_kernel_op", "pad_factor"]
+
+
+def pad_factor(f: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Pad rows with zeros to a whole number of chunks."""
+    rpad = (-f.shape[0]) % chunk
+    return F.pad(f, (0, 0, 0, rpad)) if rpad else f
+
+
+def mttkrp_kernel_op(factors, task_chunk, coords_rel, values, *,
+                     mode: int, chunk_shape: tuple[int, ...], out_dim: int) -> torch.Tensor:
+    """Chunked spMTTKRP through the kernel.  Returns (out_dim, R) f32."""
+    padded = tuple(pad_factor(f, chunk_shape[m]) for m, f in enumerate(factors))
+    local = mttkrp_local(padded, task_chunk, coords_rel, values,
+                         mode=mode, chunk_shape=chunk_shape)
+    out_pad = -(-out_dim // chunk_shape[mode]) * chunk_shape[mode]
+    out = ref.reduce_local(local, task_chunk, mode=mode,
+                           chunk_shape=chunk_shape, out_dim=out_pad)
+    return out[:out_dim]
