@@ -1,33 +1,52 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU (built for the H100).
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU (built for the H100).
 
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
   1. device check: a CUDA card is required; print its name and power limit;
-  2. build the CUDA kernel with nvcc and print what ptxas reports;
-  3. hold the kernel against its plain PyTorch version on the card, every
-     mode, local partials and the full op, for
+  2. build both CUDA kernels with nvcc (one process each, started together)
+     and print what ptxas reports;
+  3. hold the float kernel against its plain PyTorch version on the card,
+     every mode, local partials and the full op, for
        (a) NELL-2's published dims and nnz, uniform, seed 0, R = 10, under the
            256 KiB plan of examples/decompose_tensor.py,
        (b) the same tensor under the engine's default 64 MiB plan,
        (c) LBNL's published dims and nnz, powerlaw, under the 256 KiB plan
            (5 modes, hot chunks split by nonzero partitioning);
-  4. the main path: cp_als on tensor (a) through the `kernel` engine built as
-     the example builds it; the kernel must launch n_iters × 3 times, and
-     the fit and factors must follow the plain `chunked` engine on the card;
-     then, on the small TABLE1 nell2, the kernel engine on the card must
-     follow the CPU path that the CPU tests hold to the JAX reference;
-  5. time the kernel per mode at case (a) with CUDA events beside its plain
-     version and its bound;
+     3f. hold the fixed-point kernel (paper Alg. 2) against its plain version
+     bit for bit on the same cases: presets int7 and int15-12 everywhere,
+     int3 (int8 factors) in (a); print each preset's accumulator bound
+     beside the largest per-output-row nonzero count;
+  4. the float path: cp_als on tensor (a) through the `kernel` engine built
+     as the example builds it; the float kernel must launch n_iters × 3
+     times (the fixed one never), and the fit and factors must follow the
+     plain `chunked` engine on the card; then, on the small TABLE1 nell2,
+     the kernel engine on the card must follow the CPU path that the CPU
+     tests hold to the JAX reference;
+     4f. the fixed-point path: cp_als through the `fixed` engine on (a) with
+     int7 and on (c) with int15-12; the fixed kernel must launch n_iters × N
+     times (the float one never), and fit, diff and factors must equal, bit
+     for bit, those of the same run through the plain `mttkrp_chunked_fixed`
+     on the card (quant_error within 1e-4: its float reference sums with
+     atomics); then, on TABLE1 nell2 (int7) and
+     lbnl (int15-12), the card must follow the CPU path;
+     4g. the paper's Fig. 6 claim (int15-12 tracks float, int7 stays
+     bounded) on tests/test_cpals.py's planted low-rank tensor, and a
+     planted rank-3 cube of side 180 (every cell present) where the fit
+     means something;
+  5. time both kernels per mode at case (a) with CUDA events beside their
+     plain versions and their bounds, and the engines' steady iterations;
   6. print the `kernels` line, then, last, the device line.
 
-Tolerance (phases 3 and 4): the kernel forms each nonzero's product in the
-plain version's order and differs only in the order of its atomic float32
-sums.  Each entry is held to 1e-4 of the sum of the absolute values of its
-terms: a float32 sum of k terms reordered moves by at most 2·(k-1)·2^-24 of
-that, which is 1e-4 for k ≈ 840, and its typical error (∝ √k) stays far
-below it for the few thousand terms per entry seen here.
+Tolerance (phases 3 and 4): the float kernel forms each nonzero's product
+in the plain version's order and differs only in the order of its atomic
+float32 sums.  Each entry is held to 1e-4 of the sum of the absolute values
+of its terms: a float32 sum of k terms reordered moves by at most
+2·(k-1)·2^-24 of that, which is 1e-4 for k ≈ 840, and its typical error
+(∝ √k) stays far below it for the few thousand terms per entry seen here.
+The fixed kernel sums integers, so phases 3f and 4f compare exactly; card
+against CPU (4, 4f) uses the CPU tests' tolerances against the JAX package.
 """
 from __future__ import annotations
 
@@ -46,7 +65,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch as rt  # noqa: E402
 from repro_torch.engine import PlanCache, default_plan_cache  # noqa: E402
-from repro_torch.kernels import _build, mttkrp_kernel  # noqa: E402
+from repro_torch.kernels import _build, mttkrp_fixed_kernel, mttkrp_kernel  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 
 RANK = 10
@@ -60,10 +79,28 @@ ABS_FLOOR = 1e-6
 FIT_ATOL = 1e-5                    # per iteration, kernel vs plain engine
 FACTOR_ATOL = 1e-3                 # final L∞-normalized factors, kernel vs plain engine
 SMALL_ATOL = 1e-6                  # fit and diff on TABLE1 nell2, card vs CPU (as the CPU tests)
+# quant_error of the fixed engine against the plain op's, both on the card:
+# its float COO reference sums with float atomics (`index_add_`) in an order
+# that changes from run to run, so it is held to the 1e-4 of the float
+# kernel's reordered sums, relative; fit, diff and factors stay bit-exact.
+QUANT_CARD_RTOL = 1e-4
+# The fixed engine, card vs CPU: fit and diff within 1e-5 + 1e-3·|cpu|,
+# quant_error within 1% (the tolerances of tests/test_torch_fixed.py).
+FIXED_SMALL_ATOL, FIXED_SMALL_RTOL, QUANT_RTOL = 1e-5, 1e-3, 1e-2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOPS = 67e12                  # H100 SXM, float32 outside the tensor cores
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/mttkrp.cu"
-REPLACES = "src/repro/kernels/mttkrp_kernel.py:59"
+# 132 SMs × 64 INT32 lanes × 1.98 GHz boost (Hopper white paper; the same
+# clock gives the data sheet's 67 TFLOP/s float32 from 128 FP32 lanes).
+I32_OPS = 132 * 64 * 1.98e9
+PLANTED_SIDE = 180                 # 5.8 M cells; side² nonzeros per output row (phase 4g)
+PLANTED_RANK = 3
+KERNELS = {
+    "float": dict(name="mttkrp_local_f32", source="src/repro_torch/kernels/csrc/mttkrp.cu",
+                  replaces="src/repro/kernels/mttkrp_kernel.py:59"),
+    "fixed": dict(name="mttkrp_fixed_local_i32",
+                  source="src/repro_torch/kernels/csrc/mttkrp_fixed.cu",
+                  replaces="src/repro/kernels/mttkrp_fixed_kernel.py:62"),
+}
 
 
 def log(msg: str) -> None:
@@ -81,6 +118,11 @@ def sum_order_error(got, want, abs_terms) -> tuple[float, int]:
     return (float(err.max()) if err.numel() else 0.0), bad
 
 
+def int_error(got, want) -> int:
+    """Largest |got - want| of two int32 tensors, exactly."""
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean milliseconds per call over `reps` calls, after one warm-up call."""
     fn()
@@ -94,23 +136,48 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, ops: float, op_rate: float) -> tuple[float, str]:
+    """(least ms, what bounds it) for `nbytes` moved and `ops` done."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / op_rate
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def kernel_bound(st, ct, mode: int) -> tuple[float, str, float, float]:
-    """Least time for one local launch: each live nonzero's coordinates and
-    value read once, each input factor read once, each partial written once,
-    over the memory rate; (N-1)·R multiplies + R adds per nonzero over the
-    float32 rate.  Returns (ms, bound_by, bytes, operations)."""
+    """Least time for one float local launch: each live nonzero's coordinates
+    and value read once, each input factor read once, each partial written
+    once, over the memory rate; (N-1)·R multiplies + R adds per nonzero over
+    the float32 rate.  Returns (ms, bound_by, bytes, operations)."""
     n = st.ndim
     nbytes = (st.nnz * (4 * n + 4)
               + sum(st.shape[m] * RANK * 4 for m in range(n) if m != mode)
               + ct.num_tasks * ct.chunk_shape[mode] * RANK * 4)
     ops = st.nnz * RANK * n
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+    return (*bound(nbytes, ops, F32_FLOPS), nbytes, ops)
+
+
+def fixed_kernel_bound(st, ct, mode: int, live: int, factor_bytes: int,
+                       value_bytes: int) -> tuple[float, str, float, float]:
+    """Least time for one fixed-point local launch: each live nonzero's
+    (nonzero qvalue) coordinates and qvalue read once, each input factor once
+    at its storage width, each int32 partial written once, over the memory
+    rate; per live nonzero and r, (N-2) multiplies and shifts, one multiply
+    by the qvalue, one shift and one add, over the int32 rate."""
+    n = st.ndim
+    nbytes = (live * (4 * n + value_bytes)
+              + sum(st.shape[m] * RANK * factor_bytes for m in range(n) if m != mode)
+              + ct.num_tasks * ct.chunk_shape[mode] * RANK * 4)
+    ops = live * RANK * (2 * (n - 1) + 1)
+    return (*bound(nbytes, ops, I32_OPS), nbytes, ops)
+
+
+def steady(iter_times) -> float:
+    """Mean of the iterations after the first (which carries set-up), in ms."""
+    return 1e3 * float(np.mean(iter_times[1:]))
 
 
 def check_case(label, st, ct, dev, device) -> float:
-    """Phase 3 for one case: kernel vs plain, local partials and full op,
-    every mode.  Returns the largest absolute difference seen."""
+    """Phase 3 for one case: float kernel vs plain, local partials and full
+    op, every mode.  Returns the largest absolute difference seen."""
     cs = ct.chunk_shape
     log(f"[3] case {label}: dims={st.shape} nnz={st.nnz} chunk={cs} "
         f"T={ct.num_tasks} P={ct.capacity} fill={st.nnz / (ct.num_tasks * ct.capacity):.3f}")
@@ -147,6 +214,196 @@ def check_case(label, st, ct, dev, device) -> float:
     return worst
 
 
+def fixed_inputs(st, ct, device, preset):
+    """Quantized inputs as the `fixed` engine makes them: `init_factors`
+    L∞-normalized (as cp_als feeds them), quantized on the card; the values
+    in the runtime 16-bit format.  Returns (qfactors, qvalues, shift kwargs)."""
+    qf, prec_shift = rt.FIXED_PRESETS[preset]
+    factors = rt.init_factors(st.shape, RANK, seed=0, device=device)
+    qfactors = [qf.quantize(f / f.abs().amax(dim=0)) for f in factors]
+    vq = rt.value_qformat(st.values)
+    qvalues = torch.from_numpy(vq.quantize_np(ct.values)).to(device)
+    return qfactors, qvalues, dict(matrix_frac=qf.frac_bits, value_frac=vq.frac_bits,
+                                   prec_shift=prec_shift)
+
+
+def check_fixed_case(label, st, ct, dev, device, presets) -> int:
+    """Phase 3f for one case: fixed kernel vs plain, bit for bit, local
+    partials and full op, every mode and preset.  Returns the largest
+    absolute difference seen (0 when they agree)."""
+    cs = ct.chunk_shape
+    row_nnz = [int(np.bincount(st.coords[:, m], minlength=st.shape[m]).max())
+               for m in range(st.ndim)]
+    tc, cr = dev["task_chunk"], dev["coords_rel"]
+    worst = 0
+    for preset in presets:
+        qfactors, qvalues, q = fixed_inputs(st, ct, device, preset)
+        safe = rt.accumulator_safe_nnz(preset, value_frac=q["value_frac"])
+        log(f"[3f] case {label} {preset}: value_frac={q['value_frac']} largest per-output-row "
+            f"nnz per mode={row_nnz} accumulator_safe_nnz={safe} "
+            f"({'within' if max(row_nnz) <= safe else 'EXCEEDED: the int32 sums may wrap'})")
+        padded = [rt.pad_factor(f, cs[m]) for m, f in enumerate(qfactors)]
+        for mode in range(st.ndim):
+            got = rt.mttkrp_fixed_local(padded, tc, cr, qvalues, mode=mode, chunk_shape=cs, **q)
+            want = kref.mttkrp_fixed_local_ref(padded, tc, cr, qvalues, mode=mode,
+                                               chunk_shape=cs, **q)
+            local_ok, local_err = bool(torch.equal(got, want)), int_error(got, want)
+            del got, want
+            out_dim = st.shape[mode]
+            got = rt.mttkrp_fixed_kernel_op(qfactors, tc, cr, qvalues, mode=mode, chunk_shape=cs,
+                                            out_dim=out_dim, **q)
+            want = rt.mttkrp_chunked_fixed(qfactors, tc, cr, qvalues, mode=mode, chunk_shape=cs,
+                                           out_dim=out_dim, **q)
+            op_ok, op_err = bool(torch.equal(got, want)), int_error(got, want)
+            log(f"[3f]   mode {mode}: local equal={local_ok} op equal={op_ok} "
+                f"max|out|={int(want.abs().max())}")
+            del got, want
+            worst = max(worst, local_err, op_err)
+            if not (local_ok and op_ok):
+                fail(f"case {label} {preset} mode {mode}: the fixed kernel differs from its "
+                     f"plain version by up to {max(local_err, op_err)}")
+    return worst
+
+
+def plain_fixed_engine(engine: rt.Engine) -> rt.Engine:
+    """The same fixed-point engine with the plain `mttkrp_chunked_fixed` in
+    place of the kernel op, on the same device arrays."""
+    ctx = engine.context
+    qf, prec_shift = rt.FIXED_PRESETS[ctx.fixed_preset]
+    dev = ctx.device_arrays()
+    vq = rt.value_qformat(ctx.st.values)
+    qvalues = torch.from_numpy(vq.quantize_np(ctx.chunked().values)).to(ctx.device)
+
+    def fn(factors, mode):
+        qout = rt.mttkrp_chunked_fixed(
+            [qf.quantize(f) for f in factors], dev["task_chunk"], dev["coords_rel"], qvalues,
+            mode=mode, chunk_shape=ctx.chunk_shape, out_dim=ctx.st.shape[mode],
+            matrix_frac=qf.frac_bits, value_frac=vq.frac_bits, prec_shift=prec_shift)
+        return rt.dequantize_output(qout, qf.frac_bits, prec_shift)
+    return rt.Engine(f"{engine.name} (plain)", fn, spec=engine.spec)
+
+
+def fixed_main_run(label, st, plan, preset) -> tuple[rt.CPResult, int]:
+    """Phase 4f for one tensor: cp_als through the `fixed` engine, its
+    launches counted from 0, against the same run through the plain op.
+    Returns the result and the fixed kernel's launches."""
+    mttkrp_kernel.launches = 0
+    mttkrp_fixed_kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine = rt.build_engine(st, "fixed", RANK, fixed_preset=preset,
+                             chunk_shape=plan.chunk_shape, capacity=plan.capacity)
+    res = rt.cp_als(st, RANK, n_iters=N_ITERS, engine=engine, seed=0)
+    t_run = time.perf_counter() - t0
+    launches, float_launches = mttkrp_fixed_kernel.launches, mttkrp_kernel.launches
+    peak_bytes = torch.cuda.max_memory_allocated()
+    want = N_ITERS * st.ndim
+    log(f"[4f] {label}: cp_als engine={res.engine} preset={preset} in {t_run:.1f}s, "
+        f"fixed kernel launches={launches} (expected {want}), float kernel launches="
+        f"{float_launches}")
+    log(f"[4f]   fit_history={res.fit_history}")
+    log(f"[4f]   diff_history={res.diff_history}")
+    log(f"[4f]   quant_error={res.quant_error}")
+    log(f"[4f]   iter_times={res.iter_times} steady={steady(res.iter_times):.3f} ms")
+    log(f"[4f]   device memory: resident before {base_bytes / 2**30:.3f} GiB, "
+        f"peak {peak_bytes / 2**30:.3f} GiB")
+    if launches != want or float_launches != 0:
+        fail(f"{label}: the fixed path launched the fixed kernel {launches} times (expected "
+             f"{want}) and the float kernel {float_launches} times (expected 0)")
+    if not all(math.isfinite(v) for v in res.fit_history + res.diff_history + [res.quant_error]):
+        fail(f"{label}: non-finite fit, diff or quant_error")
+    for m, f in enumerate(res.factors):
+        if tuple(f.shape) != (st.shape[m], RANK) or not bool(torch.isfinite(f).all()):
+            fail(f"{label}: factor {m} has shape {tuple(f.shape)} or non-finite entries")
+    plain = rt.cp_als(st, RANK, n_iters=N_ITERS, engine=plain_fixed_engine(engine), seed=0)
+    same = {"fit_history": res.fit_history == plain.fit_history,
+            "diff_history": res.diff_history == plain.diff_history,
+            "factors": all(bool(torch.equal(a, b)) for a, b in zip(res.factors, plain.factors,
+                                                                   strict=True))}
+    quant_gap = abs(res.quant_error - plain.quant_error) / plain.quant_error
+    log(f"[4f]   plain op: fit_history={plain.fit_history} quant_error={plain.quant_error} "
+        f"steady={steady(plain.iter_times):.3f} ms; bit-identical to the kernel run: {same}; "
+        f"quant_error {quant_gap:.3e} apart (tolerance {QUANT_CARD_RTOL} relative)")
+    if not all(same.values()) or quant_gap > QUANT_CARD_RTOL:
+        fail(f"{label}: the fixed engine left the plain op's run")
+    return res, launches
+
+
+def planted_lowrank(shape, rank: int, seed: int) -> rt.SparseTensor:
+    """A fully observed exactly-rank-`rank` tensor (factors uniform(-1, 1),
+    every cell present), built as tests/test_cpals.py builds one: sparse
+    CP-ALS counts absent cells as zeros, so every cell must be there for a
+    high fit."""
+    rng = np.random.default_rng(seed)
+    factors = [rng.uniform(-1, 1, (d, rank)).astype(np.float32) for d in shape]
+    coords = np.indices(shape, dtype=np.int32).reshape(len(shape), -1).T.copy()
+    prod = np.ones((coords.shape[0], rank), np.float32)
+    for m, f in enumerate(factors):
+        prod *= f[coords[:, m]]
+    return rt.SparseTensor(coords, prod.sum(1).astype(np.float32), tuple(shape))
+
+
+def planted_runs(label, st, **engine_kwargs) -> tuple[rt.CPResult, ...]:
+    """cp_als at rank 5, 5 iterations, seed 5, through `kernel` (float),
+    `fixed:int15-12` and `fixed:int7`; logs and returns the three results."""
+    runs = [rt.cp_als(st, 5, n_iters=N_ITERS, engine=eng, seed=5, **engine_kwargs)
+            for eng in ("kernel", "fixed:int15-12", "fixed:int7")]
+    for r in runs:
+        log(f"[4g]   {label} {r.engine}: fit={r.fit_history} diff={r.diff_history} "
+            f"quant_error={r.quant_error} steady={steady(r.iter_times):.3f} ms")
+    return tuple(runs)
+
+
+def planted_check() -> None:
+    """Phase 4g, the paper's Fig. 6 claim on the card.
+
+    (1) tests/test_cpals.py's own Fig. 6 case, (12, 10, 12) at rank 3, held
+    to that test's criteria: int15-12's final diff within 5% of float's and
+    its fit within 0.01; int7's final diff at least int15-12's and below 3×
+    its first.
+    (2) a cube of side PLANTED_SIDE (side² nonzeros per output row, within
+    both presets' accumulator bound), the same runs, held to the same
+    criteria but one, and to converge as
+    tests/test_cpals.py::test_cpals_converges_on_lowrank asks (final fit
+    above 0.8 and not below the first) in float and int15-12.  Int15-12's
+    diff within 5% of float's is printed, not held: here float converges
+    below int15-12's quantization floor (diff about 3e-3), a property of
+    the reference's arithmetic, which the fixed MTTKRP reproduces bit for
+    bit."""
+    def fig6(label, f_, q15, q7, *, diff_within_5pct: bool) -> None:
+        rel15 = abs(q15.diff_history[-1] - f_.diff_history[-1]) / max(f_.diff_history[-1], 1e-9)
+        log(f"[4g]   {label}: int15-12's final diff is {rel15:.4f} of float's away "
+            f"({'held to' if diff_within_5pct else 'printed, not held to'} 0.05), its fit "
+            f"{abs(q15.fit_history[-1] - f_.fit_history[-1]):.3e} away; int7's final diff "
+            f"{q7.diff_history[-1]:.4e} (int15-12's {q15.diff_history[-1]:.4e}, 3 × int7's "
+            f"first {3 * q7.diff_history[0]:.4e})")
+        if not ((rel15 < 0.05 or not diff_within_5pct)
+                and abs(q15.fit_history[-1] - f_.fit_history[-1]) < 0.01
+                and q7.diff_history[-1] >= q15.diff_history[-1]
+                and q7.diff_history[-1] < 3 * q7.diff_history[0]):
+            fail(f"the Fig. 6 check failed on {label}")
+
+    st = planted_lowrank((12, 10, 12), PLANTED_RANK, seed=4)
+    runs = planted_runs("test_cpals (12, 10, 12)", st, chunk_shape=(8, 8, 8), capacity=512)
+    fig6("tests/test_cpals.py's tensor", *runs, diff_within_5pct=True)
+
+    t0 = time.perf_counter()
+    st = planted_lowrank((PLANTED_SIDE,) * 3, PLANTED_RANK, seed=4)
+    value_frac = rt.value_qformat(st.values).frac_bits
+    safe = {p: rt.accumulator_safe_nnz(p, value_frac=value_frac) for p in ("int7", "int15-12")}
+    log(f"[4g] planted rank-{PLANTED_RANK} cube side {PLANTED_SIDE}: nnz={st.nnz}, "
+        f"value_frac={value_frac}, per-row nnz {PLANTED_SIDE ** 2} vs accumulator_safe_nnz "
+        f"{safe} (built in {time.perf_counter() - t0:.1f}s)")
+    if PLANTED_SIDE ** 2 > min(safe.values()):
+        fail("the planted cube's rows exceed a preset's accumulator bound")
+    runs = planted_runs(f"cube {PLANTED_SIDE}", st)
+    fig6(f"the planted cube of side {PLANTED_SIDE}", *runs, diff_within_5pct=False)
+    if not all(r.fit_history[-1] > 0.8 and r.fit_history[-1] >= r.fit_history[0]
+               for r in runs[:2]):
+        fail("float or int15-12 cp_als did not converge on the planted cube")
+
+
 def main() -> int:
     # 1. Device check.
     if not torch.cuda.is_available():
@@ -164,15 +421,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    # 2. Build.
+    # 2. Build both kernels, one nvcc each, in parallel.
     t0 = time.perf_counter()
-    _build.build(["mttkrp"])
-    log(f"[2] built csrc/mttkrp.cu in {time.perf_counter() - t0:.1f}s")
-    for line in _build.build_log("mttkrp").splitlines():
-        if "ptxas" in line or "spill" in line:
-            log(f"[2]   {line.strip()}")
+    sources = ["mttkrp", "mttkrp_fixed"]
+    _build.build(sources)
+    log(f"[2] built csrc/{{{', '.join(sources)}}}.cu in {time.perf_counter() - t0:.1f}s")
+    for name in sources:
+        for line in _build.build_log(name).splitlines():
+            if "ptxas" in line or "spill" in line:
+                log(f"[2]   {name}: {line.strip()}")
 
-    # 3. Kernel vs plain, cases (a), (b), (c).
+    # 3. Kernels vs plain, cases (a), (b), (c).
     t0 = time.perf_counter()
     st_a = rt.random_tensor(NELL2["shape"], NELL2["nnz"], distribution=NELL2["distribution"],
                             seed=0)
@@ -184,28 +443,33 @@ def main() -> int:
     log(f"[3] host set-up (a): random_tensor {t_gen:.1f}s, chunk_tensor {t_chunk:.1f}s")
     dev_a = default_plan_cache.device_arrays(st_a, plan_a.chunk_shape, plan_a.capacity, device)
     worst = check_case("a (NELL-2, 256 KiB plan)", st_a, ct_a, dev_a, device)
+    worst_fixed = check_fixed_case("a", st_a, ct_a, dev_a, device, ["int7", "int15-12", "int3"])
 
-    side = PlanCache()  # (b) and (c) are freed before the main path
+    side = PlanCache()  # (b) is freed before the main paths
     plan_b = side.plan(st_a, RANK, mem_bytes=DEFAULT_MEM)
-    worst = max(worst, check_case(
-        "b (NELL-2, default 64 MiB plan)", st_a, side.chunked(st_a, plan_b.chunk_shape, plan_b.capacity),
-        side.device_arrays(st_a, plan_b.chunk_shape, plan_b.capacity, device), device))
+    ct_b = side.chunked(st_a, plan_b.chunk_shape, plan_b.capacity)
+    dev_b = side.device_arrays(st_a, plan_b.chunk_shape, plan_b.capacity, device)
+    worst = max(worst, check_case("b (NELL-2, default 64 MiB plan)", st_a, ct_b, dev_b, device))
+    worst_fixed = max(worst_fixed, check_fixed_case("b", st_a, ct_b, dev_b, device,
+                                                    ["int7", "int15-12"]))
+    del side, ct_b, dev_b
     t0 = time.perf_counter()
     st_c = rt.random_tensor(LBNL["shape"], LBNL["nnz"], distribution=LBNL["distribution"], seed=0)
     plan_c = rt.decide_partition(st_c, RANK, mem_bytes=EXAMPLE_MEM, rank_axis=RANK)
-    ct_c = side.chunked(st_c, plan_c.chunk_shape, plan_c.capacity)
+    ct_c = default_plan_cache.chunked(st_c, plan_c.chunk_shape, plan_c.capacity)
     log(f"[3] host set-up (c): {time.perf_counter() - t0:.1f}s")
     if ct_c.num_tasks <= len(np.unique(ct_c.task_chunk, axis=0)):
         fail("case c: no chunk was split by nonzero partitioning")
-    worst = max(worst, check_case("c (LBNL, 256 KiB plan)", st_c, ct_c,
-                                  side.device_arrays(st_c, plan_c.chunk_shape, plan_c.capacity,
-                                                     device), device))
-    del side, st_c, ct_c
+    dev_c = default_plan_cache.device_arrays(st_c, plan_c.chunk_shape, plan_c.capacity, device)
+    worst = max(worst, check_case("c (LBNL, 256 KiB plan)", st_c, ct_c, dev_c, device))
+    worst_fixed = max(worst_fixed, check_fixed_case("c", st_c, ct_c, dev_c, device,
+                                                    ["int7", "int15-12"]))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # 4. Main path: cp_als through the kernel engine, as the example builds it.
+    # 4. Float path: cp_als through the kernel engine, as the example builds it.
     mttkrp_kernel.launches = 0
+    mttkrp_fixed_kernel.launches = 0
     torch.cuda.reset_peak_memory_stats()
     base_bytes = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -214,15 +478,19 @@ def main() -> int:
     res = rt.cp_als(st_a, RANK, n_iters=N_ITERS, engine=engine, seed=0)
     t_main = time.perf_counter() - t0
     launches = mttkrp_kernel.launches
+    fixed_in_float = mttkrp_fixed_kernel.launches
     peak_bytes = torch.cuda.max_memory_allocated()
-    log(f"[4] cp_als engine={res.engine} in {t_main:.1f}s, kernel launches={launches}")
+    float_iter_times = res.iter_times
+    log(f"[4] cp_als engine={res.engine} in {t_main:.1f}s, kernel launches={launches}, "
+        f"fixed kernel launches={fixed_in_float}")
     log(f"[4]   fit_history={res.fit_history}")
     log(f"[4]   diff_history={res.diff_history}")
     log(f"[4]   iter_times={res.iter_times}")
     log(f"[4]   device memory: resident before {base_bytes / 2**30:.3f} GiB, "
         f"peak {peak_bytes / 2**30:.3f} GiB")
-    if launches != N_ITERS * st_a.ndim:
-        fail(f"kernel launched {launches} times in the main path, expected {N_ITERS * st_a.ndim}")
+    if launches != N_ITERS * st_a.ndim or fixed_in_float != 0:
+        fail(f"kernel launched {launches} times in the main path, expected "
+             f"{N_ITERS * st_a.ndim}; the fixed kernel {fixed_in_float} times, expected 0")
     if len(res.fit_history) != N_ITERS or not all(math.isfinite(f) for f in res.fit_history):
         fail(f"fit_history is not {N_ITERS} finite values")
     for m, f in enumerate(res.factors):
@@ -243,7 +511,7 @@ def main() -> int:
     log(f"[4]   max |factor kernel - factor plain| = {factor_gap:.3e} (tolerance {FACTOR_ATOL})")
     if factor_gap > FACTOR_ATOL:
         fail("the kernel engine's factors left the plain engine's")
-    del plain
+    del plain, res
     # A small input whose fit stands far above the residual's float32
     # resolution: the kernel engine on the card against the plain engine on
     # the CPU, which the CPU tests hold against the JAX package.
@@ -257,6 +525,39 @@ def main() -> int:
         f"max gap (fit, diff)={small_gap:.3e} (tolerance {SMALL_ATOL})")
     if small_gap > SMALL_ATOL:
         fail("the kernel engine on the card left the CPU path on TABLE1 nell2")
+
+    # 4f. Fixed-point path: int7 on NELL-2 (the paper's mode-3 format),
+    # int15-12 on LBNL (its mode-5 format).
+    res_fa, launches_fa = fixed_main_run("a (NELL-2)", st_a, plan_a, "int7")
+    fixed_iter_times = res_fa.iter_times
+    del res_fa
+    _, launches_fc = fixed_main_run("c (LBNL)", st_c, plan_c, "int15-12")
+    fixed_launches = launches_fa + launches_fc
+    for name, preset in [("nell2", "int7"), ("lbnl", "int15-12")]:
+        small = rt.table1_tensor(name)
+        on_card = rt.cp_als(small, RANK, n_iters=3, engine="fixed", fixed_preset=preset)
+        on_cpu = rt.cp_als(small, RANK, n_iters=3, engine="fixed", fixed_preset=preset,
+                           device="cpu")
+        got = np.array(on_card.fit_history + on_card.diff_history)
+        want = np.array(on_cpu.fit_history + on_cpu.diff_history)
+        gap = float(np.abs(got - want).max())
+        ok = (bool(np.all(np.abs(got - want) <= FIXED_SMALL_ATOL + FIXED_SMALL_RTOL * np.abs(want)))
+              and abs(on_card.quant_error - on_cpu.quant_error)
+              <= QUANT_RTOL * abs(on_cpu.quant_error))
+        log(f"[4f]  TABLE1 {name} {preset}: card fit={on_card.fit_history} cpu fit="
+            f"{on_cpu.fit_history} max gap (fit, diff)={gap:.3e} quant_error card="
+            f"{on_card.quant_error} cpu={on_cpu.quant_error} (tolerance {FIXED_SMALL_ATOL} + "
+            f"{FIXED_SMALL_RTOL}·|cpu|, quant_error {QUANT_RTOL} relative)")
+        if not ok:
+            fail(f"the fixed engine on the card left the CPU path on TABLE1 {name}")
+    del st_c, ct_c, dev_c  # (c)'s cache entries go with st_c
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # 4g. Planted low-rank cube: the paper's Fig. 6 claim on the card.
+    planted_check()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
     # 5. Timing at case (a)'s shapes, plain and kernel in turns.
     factors = [rt.pad_factor(f, plan_a.chunk_shape[m])
@@ -277,12 +578,43 @@ def main() -> int:
         p1, k1, k2, p2 = (time_ms(plain_local, 3), time_ms(kernel, 10),
                           time_ms(kernel, 10), time_ms(plain_local, 3))
         op = time_ms(full_op, 10)
-        bound, bound_by, nbytes, ops = kernel_bound(st_a, ct_a, mode)
+        bound_ms, bound_by, nbytes, ops = kernel_bound(st_a, ct_a, mode)
         row = dict(mode=mode, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, op_ms=op,
-                   bound_ms=bound, bound_by=bound_by, bytes=nbytes, ops=ops,
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
                    ms_runs=[k1, k2], plain_ms_runs=[p1, p2])
         modes.append(row)
         log(f"[5] mode {mode}: " + json.dumps(row))
+
+    # 5f. The fixed kernel at case (a), int7 (the NELL-2 main path's preset).
+    qfactors, qvalues, q = fixed_inputs(st_a, ct_a, device, "int7")
+    qpadded = [rt.pad_factor(f, plan_a.chunk_shape[m]) for m, f in enumerate(qfactors)]
+    live = int(torch.count_nonzero(qvalues))
+    fixed_modes = []
+    for mode in range(st_a.ndim):
+        def fkernel(mode=mode):
+            return rt.mttkrp_fixed_local(qpadded, tc, cr, qvalues, mode=mode,
+                                         chunk_shape=ct_a.chunk_shape, **q)
+
+        def fplain(mode=mode):
+            return kref.mttkrp_fixed_local_ref(qpadded, tc, cr, qvalues, mode=mode,
+                                               chunk_shape=ct_a.chunk_shape, **q)
+
+        def fop(mode=mode):
+            return rt.mttkrp_fixed_kernel_op(qfactors, tc, cr, qvalues, mode=mode,
+                                             chunk_shape=ct_a.chunk_shape,
+                                             out_dim=st_a.shape[mode], **q)
+        p1, k1, k2, p2 = (time_ms(fplain, 3), time_ms(fkernel, 10),
+                          time_ms(fkernel, 10), time_ms(fplain, 3))
+        op = time_ms(fop, 10)
+        bound_ms, bound_by, nbytes, ops = fixed_kernel_bound(
+            st_a, ct_a, mode, live, qfactors[0].element_size(), qvalues.element_size())
+        row = dict(mode=mode, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, op_ms=op,
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops, live=live,
+                   ms_runs=[k1, k2], plain_ms_runs=[p1, p2])
+        fixed_modes.append(row)
+        log(f"[5f] mode {mode}: " + json.dumps(row))
+    log(f"[5f] steady cp_als iteration at (a): fixed int7 {steady(fixed_iter_times):.3f} ms, "
+        f"float kernel {steady(float_iter_times):.3f} ms")
     smi_after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -292,20 +624,19 @@ def main() -> int:
     log(f"[6] total {time.perf_counter() - t_start:.1f}s")
 
     # 6. Kernels line (ms/plain_ms/bound_ms: the 3 launches of one CP-ALS
-    # iteration at case (a)'s shapes, summed over the modes).
-    print(json.dumps({"kernels": [{
-        "name": "mttkrp_local_f32",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": REPLACES,
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": sum(r["ms"] for r in modes),
-        "plain_ms": sum(r["plain_ms"] for r in modes),
-        "bound_ms": sum(r["bound_ms"] for r in modes),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in modes) else "operations",
-        "library_ms": None,
-    }]}), flush=True)
+    # iteration at case (a)'s shapes, summed over the modes; launches: the
+    # main path's runs, the fixed kernel's over both of its runs).
+    def entry(kind, rows, n_launches, err):
+        return {**KERNELS[kind], "route": "cuda", "launches": n_launches, "max_abs_err": err,
+                "ms": sum(r["ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                "bound_ms": sum(r["bound_ms"] for r in rows),
+                "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                             else "operations"),
+                "library_ms": None}
+    print(json.dumps({"kernels": [entry("float", modes, launches, worst),
+                                  entry("fixed", fixed_modes, fixed_launches,
+                                        float(worst_fixed))]}), flush=True)
     # 7. Device line, last.
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

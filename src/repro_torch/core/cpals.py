@@ -4,8 +4,9 @@
 Everything except MTTKRP — Gram matrices, Hadamard products, the
 pseudo-inverse solve, normalization, the fit — is dense float32 work on the
 engine's device.  The engine is any backend name registered in
-`repro_torch.engine` (`ref`, `chunked`, `kernel`), an `Engine` from
-`build_engine`, or a callable ``f(factors, mode) -> (I_mode, R)``.
+`repro_torch.engine` (`ref`, `chunked`, `kernel`, `fixed`) or preset id
+(`"fixed:int15-12"`), an `Engine` from `build_engine`, or a callable
+``f(factors, mode) -> (I_mode, R)``.
 
 Normalization is L-infinity by default (paper §IV-C); L2 is available.
 """
@@ -40,6 +41,9 @@ class CPResult:
     diff_history: list[float]
     iter_times: list[float]
     engine: str
+    #: Measured MTTKRP relative error of a lossy (fixed-point) engine on the
+    #: final factors; None for lossless engines and bare callables.
+    quant_error: float | None = None
 
 
 def init_factors(shape, rank: int, seed: int = 0, *,
@@ -128,6 +132,35 @@ def _engine_device(eng, device) -> torch.device:
     return ctx.device
 
 
+def _exact_mttkrp(eng) -> bool:
+    """True when the engine's MTTKRP output is the exact float operand, so
+    the fit fast path (inner product from `mlast`) matches the slow path.
+    Lossy backends (fixed point, by name or preset id) and lock-free
+    collision dropping give approximate MTTKRPs, whose noise must not bias
+    the reported fit; a bare callable is unknown, so neither qualifies."""
+    ctx = getattr(eng, "context", None)
+    if ctx is not None and ctx.lockfree_mode:
+        return False
+    spec = getattr(eng, "spec", None)
+    return spec is not None and spec.lossless
+
+
+def _measured_quant_error(eng, st: SparseTensor, factors, mlast, coo) -> float | None:
+    """Relative error of a lossy engine's last-mode MTTKRP against the float
+    COO reference on the final factors.  The last mode's MTTKRP does not
+    read the last factor, so the final iteration's output `mlast` is the
+    engine's output on the final factors: reusing it spares one launch."""
+    spec = getattr(eng, "spec", None)
+    if spec is None or spec.lossless:
+        return None
+    from .mttkrp import mttkrp_coo
+    mode = st.ndim - 1
+    out = mlast if mlast is not None else eng(factors, mode)
+    coords, values = coo
+    ref = mttkrp_coo(factors, coords, values, mode=mode, out_dim=st.shape[mode])
+    return float(torch.linalg.vector_norm(out - ref) / (torch.linalg.vector_norm(ref) + 1e-30))
+
+
 def cp_als(
     st: SparseTensor,
     rank: int,
@@ -145,11 +178,13 @@ def cp_als(
 
     `device` None means the CUDA card (and raises where there is none);
     a prebuilt engine brings its own.  `engine_kwargs` are `build_engine`
-    options (mem_bytes, chunk_shape, capacity, plans); the reference's
-    tuning keywords raise `NotImplementedError` (ROADMAP Queue 1 item 8).
+    options (mem_bytes, chunk_shape, capacity, fixed_preset, lockfree_mode,
+    plans); the reference's tuning keywords raise `NotImplementedError`
+    (ROADMAP Queue 1 item 8).
 
     Each iteration ends in one device synchronisation, so `iter_times` holds
-    finished work, and the fit adds one host readout."""
+    finished work, and the fit adds one host readout.  A lossy engine
+    (fixed point) keeps the factors-only fit and reports `quant_error`."""
     from ..engine import build_engine, validate_engine_kwargs
 
     validate_engine_kwargs("cp_als", engine_kwargs)
@@ -167,14 +202,13 @@ def cp_als(
     n = st.ndim
     factors = init_factors(st.shape, rank, seed, device=device)
     lam = torch.ones((rank,), dtype=torch.float32, device=device)
-    spec = getattr(eng, "spec", None)
-    fit_fast = spec is not None and spec.lossless
+    fit_fast = _exact_mttkrp(eng)
     coo = None if fit_fast and not track_diff else _coo_tensors(st, device)
     fit_history, diff_history, iter_times = [], [], []
     prev_fit = -np.inf
+    mlast = None
     for _ in range(n_iters):
         t0 = time.perf_counter()
-        mlast = None
         for mode in range(n):
             m = eng(factors, mode)
             # A = M (∘_{k≠mode} F_kᵀF_k)†  (Alg. 1 l.5-7)
@@ -199,4 +233,5 @@ def cp_als(
             break
         prev_fit = f
 
-    return CPResult(factors, lam, fit_history, diff_history, iter_times, eng_name)
+    quant_error = _measured_quant_error(eng, st, factors, mlast, coo)
+    return CPResult(factors, lam, fit_history, diff_history, iter_times, eng_name, quant_error)

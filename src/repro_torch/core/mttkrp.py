@@ -1,6 +1,7 @@
 """spMTTKRP in plain PyTorch: the COO reference and the chunked (PRISM)
-formulation, float path.  Counterpart of the float half of
-`repro.core.mttkrp`, with the same index semantics:
+formulation, float and fixed point (paper Alg. 2).  Counterpart of the
+float and fixed halves of `repro.core.mttkrp`, with the same index
+semantics:
 
   * gathers of factor blocks clamp to the last row (`gather_factor_blocks`);
   * scatters drop out-of-range rows, as `.at[].add(mode="drop")` does,
@@ -8,6 +9,10 @@ formulation, float path.  Counterpart of the float half of
 
 Coordinates stay int32 on the device; they are widened to int64 only for
 `torch.gather`, which takes nothing else.
+
+Fixed-point products are int32 and wrap on overflow, as XLA's do, and `>>`
+on a signed tensor is the arithmetic shift of `jnp.right_shift`, so the
+fixed ops give the reference's integers bit for bit.
 """
 from __future__ import annotations
 
@@ -18,10 +23,13 @@ from .chunking import ChunkedTensor
 __all__ = [
     "chunk_offsets",
     "chunked_device_arrays",
+    "dequantize_output",
     "gather_factor_blocks",
     "index_add_drop",
     "mttkrp_chunked",
+    "mttkrp_chunked_fixed",
     "mttkrp_coo",
+    "mttkrp_coo_fixed",
     "scatter_local",
 ]
 
@@ -97,22 +105,87 @@ def mttkrp_chunked(
     factors : sequence of (I_m, R) f32
     task_chunk : (T, N) int32; coords_rel : (T, P, N) int32; values : (T, P) f32
     """
-    rank = factors[0].shape[1]
     offsets = chunk_offsets(task_chunk, chunk_shape)
 
     # Per-task partials (T, P, R).  Padded entries have value 0 → no-op.
     part = values[..., None].to(torch.float32)
     for m, f in enumerate(factors):
-        if m == mode:
-            continue
-        blocks = gather_factor_blocks(f, offsets[:, m], chunk_shape[m])
-        idx = coords_rel[:, :, m, None].long().expand(-1, -1, rank)
-        part = part * torch.gather(blocks, 1, idx)
+        if m != mode:
+            part = part * _chunk_rows(f, offsets, coords_rel, m, chunk_shape)
+    return _sum_partials(part, offsets, coords_rel, mode, chunk_shape, out_dim)
 
+
+def _chunk_rows(factor, offsets, coords_rel, m: int, chunk_shape) -> torch.Tensor:
+    """(T, P, R) rows of mode `m`'s factor for every slot, through the
+    task's (clamped) factor block."""
+    blocks = gather_factor_blocks(factor, offsets[:, m], chunk_shape[m])
+    idx = coords_rel[:, :, m, None].long().expand(-1, -1, factor.shape[1])
+    return torch.gather(blocks, 1, idx)
+
+
+def _sum_partials(part, offsets, coords_rel, mode: int, chunk_shape, out_dim: int):
+    """Scatter (T, P, R) partials into chunk-local blocks, then sum the
+    blocks into the global (out_dim, R) output."""
     s_out = chunk_shape[mode]
     local = scatter_local(part, coords_rel[:, :, mode], s_out)
-
-    # Sum reduction of the chunk-local partials into the global output.
     rows = offsets[:, mode : mode + 1] + torch.arange(
         s_out, dtype=torch.int32, device=offsets.device)
-    return index_add_drop(out_dim, rows.reshape(-1), local.reshape(-1, rank))
+    return index_add_drop(out_dim, rows.reshape(-1), local.reshape(-1, part.shape[-1]))
+
+
+# ---------------------------------------------------------------------------
+# Fixed point (paper Algorithm 2) — bit-exact Q arithmetic.
+# ---------------------------------------------------------------------------
+
+def _fixed_partials(qfactor_rows, qvalues, mode, matrix_frac, value_frac, prec_shift):
+    """Shared Alg.-2 inner loop.  qfactor_rows: list over modes of (..., R)
+    gathered factor rows (entry at `mode` ignored); qvalues (...,).
+    Returns int32 partial results in Q(.., matrix_frac - prec_shift)."""
+    inputs = [m for m in range(len(qfactor_rows)) if m != mode]
+    part = qfactor_rows[inputs[0]].to(torch.int32)
+    for m in inputs[1:]:
+        part = (part * qfactor_rows[m].to(torch.int32)) >> matrix_frac  # Alg. 2 l.11-12
+    part = part * qvalues[..., None].to(torch.int32)
+    return part >> (value_frac + prec_shift)  # Alg. 2 l.14-15
+
+
+def mttkrp_coo_fixed(qfactors, coords, qvalues, *, mode: int, out_dim: int,
+                     matrix_frac: int, value_frac: int, prec_shift: int = 0) -> torch.Tensor:
+    """Fixed-point COO reference.  qfactors: sequence of (I_m, R) int8/16/32;
+    coords (nnz, N) int32; qvalues (nnz,) int16/int32.  Returns (out_dim, R)
+    int32 in Q(·, matrix_frac - prec_shift)."""
+    rows = [None if m == mode else f.index_select(0, coords[:, m])
+            for m, f in enumerate(qfactors)]
+    part = _fixed_partials(rows, qvalues, mode, matrix_frac, value_frac, prec_shift)
+    return index_add_drop(out_dim, coords[:, mode], part)
+
+
+def mttkrp_chunked_fixed(
+    qfactors,
+    task_chunk,
+    coords_rel,
+    qvalues,
+    *,
+    mode: int,
+    chunk_shape: tuple[int, ...],
+    out_dim: int,
+    matrix_frac: int,
+    value_frac: int,
+    prec_shift: int = 0,
+) -> torch.Tensor:
+    """Chunked fixed-point spMTTKRP (paper Alg. 2 on the chunked format).
+
+    qfactors : sequence of (I_m, R) int8/int16/int32 (by preset);
+    qvalues : (T, P) int16/int32.  Output (out_dim, R) int32 in
+    Q(·, matrix_frac - prec_shift).
+    """
+    offsets = chunk_offsets(task_chunk, chunk_shape)
+    rows = [None if m == mode else _chunk_rows(f, offsets, coords_rel, m, chunk_shape)
+            for m, f in enumerate(qfactors)]
+    part = _fixed_partials(rows, qvalues, mode, matrix_frac, value_frac, prec_shift)
+    return _sum_partials(part, offsets, coords_rel, mode, chunk_shape, out_dim)
+
+
+def dequantize_output(qout: torch.Tensor, matrix_frac: int, prec_shift: int) -> torch.Tensor:
+    """Output of the fixed kernels is Q(·, matrix_frac - prec_shift)."""
+    return qout.to(torch.float32) / (1 << (matrix_frac - prec_shift))

@@ -2,10 +2,11 @@
 
     from repro_torch.engine import build_engine
     eng = build_engine(st, "kernel", rank=10)                # on the CUDA card
+    eng = build_engine(st, "fixed:int15-12", rank=10)        # paper Alg. 2, pinned preset
     eng = build_engine(st, "chunked", rank=10, device="cpu")
     out = eng(factors, mode)                                 # (I_mode, R) f32
 
-Only explicit backend names are ported so far.  The autotuner (`"auto"`,
+Only explicit backend names and preset ids are ported so far.  The autotuner (`"auto"`,
 `tune=` and the tuning keywords of the reference) is ROADMAP Queue 1 item 8
 and raises `NotImplementedError` until it lands.
 """
@@ -22,7 +23,10 @@ from .registry import (
     Engine,
     EngineContext,
     backend_table,
+    build_candidate,
+    candidate_lossless,
     get_backend,
+    parse_candidate,
     register_backend,
     registered_backends,
 )
@@ -35,9 +39,12 @@ __all__ = [
     "PlanCache",
     "TUNING_KEYWORDS",
     "backend_table",
+    "build_candidate",
     "build_engine",
+    "candidate_lossless",
     "default_plan_cache",
     "get_backend",
+    "parse_candidate",
     "register_backend",
     "registered_backends",
     "validate_engine_kwargs",
@@ -72,7 +79,9 @@ def _nearest_kwarg_error(caller: str, unknown, valid) -> TypeError:
 
 def validate_engine_kwargs(caller: str, options: dict, *, extra: tuple[str, ...] = ()) -> None:
     """Raise `NotImplementedError` for the reference's tuning keywords and a
-    `TypeError` naming the nearest valid spelling for unknown ones."""
+    `TypeError` naming the nearest valid spelling for unknown ones.  Valid
+    keywords are the `EngineContext` fields: mem_bytes, chunk_shape,
+    capacity, fixed_preset, lockfree_mode, device, plans."""
     tuning = sorted(set(options) & set(TUNING_KEYWORDS))
     if tuning:
         raise _not_ported(f"{caller}: the tuning keyword(s) {tuning}")
@@ -85,18 +94,32 @@ def validate_engine_kwargs(caller: str, options: dict, *, extra: tuple[str, ...]
 def build_engine(st, method: str | Callable = "auto", rank: int = 10, **options) -> Engine:
     """Build an MTTKRP engine through the registry.
 
-    method  — a registered backend name (`ref`, `chunked`, `kernel`) or a
-              callable ``f(factors, mode)``, wrapped unchanged.  `"auto"`
-              raises `NotImplementedError` (ROADMAP Queue 1 item 8).
+    method  — a registered backend name (`ref`, `chunked`, `kernel`,
+              `fixed`), a preset id (``"fixed:int7"`` pins that Qm.n
+              preset) or a callable ``f(factors, mode)``, wrapped
+              unchanged.  `"auto"` raises `NotImplementedError` (ROADMAP
+              Queue 1 item 8).
     options — EngineContext fields: mem_bytes, chunk_shape, capacity,
-              device (None → the CUDA card, raising where there is none),
-              plans (a PlanCache; default the process-wide one).
+              fixed_preset (the `fixed` backend's preset, default
+              "int7"; a different one than the method pins raises),
+              lockfree_mode (emulate the paper's lock-free lost updates in
+              `chunked` and `fixed`), device (None → the CUDA card, raising
+              where there is none), plans (a PlanCache; default the
+              process-wide one).
     """
     validate_engine_kwargs("build_engine", options)
     if callable(method):
         return Engine(getattr(method, "__name__", "custom"), method)
     if method == "auto":
         raise _not_ported("engine='auto' (the autotuner)")
-    spec = get_backend(method)
+    name, preset = parse_candidate(method)
+    spec = get_backend(name)
+    if preset is not None:
+        explicit = options.get("fixed_preset")
+        if explicit is not None and explicit != preset:
+            raise ValueError(
+                f"conflicting presets: method {method!r} pins {preset!r} but "
+                f"fixed_preset={explicit!r} was also passed; drop one of the two spellings")
+        options = {**options, "fixed_preset": preset}
     ctx = EngineContext(st=st, rank=rank, **options)
     return Engine(method, spec.build(ctx), spec=spec, context=ctx)

@@ -5,6 +5,14 @@
   kernel   PRISM chunked format through the hand-written CUDA kernel
            (counterpart of the reference's `pallas`); on a CPU device the
            kernel wrapper takes its plain version
+  fixed    PRISM chunked format + paper Alg. 2 fixed point (presets int3,
+           int7, int15-12) through the hand-written fixed-point CUDA
+           kernel; on a CPU device the kernel wrapper takes its plain version
+
+`lockfree_mode` (the paper's lock-free lost updates, emulated by
+`core.lockfree.wave_collision_mask`) is read by `chunked` and `fixed`, as
+in the reference; `ref` and `kernel` ignore it, as the reference's `ref`
+and `pallas` do.
 
 Chunk-based builders pull their ChunkedTensor and device tensors from the
 context's PlanCache, so several backends built against one tensor chunk it
@@ -14,11 +22,19 @@ from __future__ import annotations
 
 import torch
 
-from ..core import mttkrp
+from ..core import lockfree, mttkrp
+from ..core.qformat import FIXED_PRESETS, value_qformat
 from ..kernels import ops as kops
 from .registry import EngineContext, register_backend
 
 __all__ = []  # backends are reached through the registry, not by import
+
+
+def _nnz_per_task(ctx: EngineContext):
+    """The per-task nonzero counts on the device when lock-free mode is on."""
+    if not ctx.lockfree_mode:
+        return None
+    return torch.from_numpy(ctx.chunked().nnz_per_task).to(ctx.device)
 
 
 @register_backend("ref", description="plain COO scatter-add reference (paper Fig. 1)")
@@ -37,10 +53,14 @@ def _build_ref(ctx: EngineContext):
 def _build_chunked(ctx: EngineContext):
     dev = ctx.device_arrays()
     cs, shape = ctx.chunk_shape, ctx.st.shape
+    nnz_pt = _nnz_per_task(ctx)
 
     def engine(factors, mode):
+        vals = dev["values"]
+        if nnz_pt is not None:
+            vals = vals * lockfree.wave_collision_mask(dev["coords_rel"][:, :, mode], nnz_pt)
         return mttkrp.mttkrp_chunked(
-            factors, dev["task_chunk"], dev["coords_rel"], dev["values"],
+            factors, dev["task_chunk"], dev["coords_rel"], vals,
             mode=mode, chunk_shape=cs, out_dim=shape[mode])
     return engine
 
@@ -55,4 +75,32 @@ def _build_kernel(ctx: EngineContext):
         return kops.mttkrp_kernel_op(
             factors, dev["task_chunk"], dev["coords_rel"], dev["values"],
             mode=mode, chunk_shape=cs, out_dim=shape[mode])
+    return engine
+
+
+@register_backend("fixed", needs_chunking=True, supports_fixed_point=True, lossless=False,
+                  presets=tuple(FIXED_PRESETS),
+                  description="PRISM chunked + paper Alg. 2 fixed point through the "
+                              "hand-written CUDA kernel")
+def _build_fixed(ctx: EngineContext):
+    qf, prec_shift = FIXED_PRESETS[ctx.fixed_preset]
+    ct = ctx.chunked()
+    dev = ctx.device_arrays()
+    cs, shape = ct.chunk_shape, ctx.st.shape
+    # The values are quantized once, on the host, to the runtime 16-bit format.
+    vq = value_qformat(ctx.st.values, storage_bits=16)
+    qvalues = torch.from_numpy(vq.quantize_np(ct.values)).to(ctx.device)
+    nnz_pt = _nnz_per_task(ctx)
+
+    def engine(factors, mode):
+        qfactors = [qf.quantize(f) for f in factors]
+        qvals = qvalues
+        if nnz_pt is not None:
+            mask = lockfree.wave_collision_mask(dev["coords_rel"][:, :, mode], nnz_pt)
+            qvals = qvals * mask.to(qvals.dtype)
+        qout = kops.mttkrp_fixed_kernel_op(
+            qfactors, dev["task_chunk"], dev["coords_rel"], qvals,
+            mode=mode, chunk_shape=cs, out_dim=shape[mode],
+            matrix_frac=qf.frac_bits, value_frac=vq.frac_bits, prec_shift=prec_shift)
+        return mttkrp.dequantize_output(qout, qf.frac_bits, prec_shift)
     return engine

@@ -12,6 +12,7 @@ from collections.abc import Callable
 
 import torch
 
+from ..core.chunking import ChunkedTensor
 from ..core.sptensor import SparseTensor
 from ..device import resolve_device
 from .plan import PlanCache, default_plan_cache
@@ -21,7 +22,10 @@ __all__ = [
     "Engine",
     "EngineContext",
     "backend_table",
+    "build_candidate",
+    "candidate_lossless",
     "get_backend",
+    "parse_candidate",
     "register_backend",
     "registered_backends",
 ]
@@ -31,16 +35,21 @@ __all__ = [
 class BackendSpec:
     """Capability declaration for one registered execution strategy.
 
-    needs_chunking — consumes the PRISM chunked format (built once, shared
-                     through the plan cache).
-    lossless       — equal to the float COO reference up to summation
-                     order, so CP-ALS may take its fit fast path.
+    needs_chunking       — consumes the PRISM chunked format (built once,
+                           shared through the plan cache).
+    supports_fixed_point — runs the paper's Alg.-2 Qm.n arithmetic.
+    lossless             — equal to the float COO reference up to summation
+                           order, so CP-ALS may take its fit fast path.
+    presets              — the Qm.n presets this backend can run
+                           (`FIXED_PRESETS` names); ``"name:preset"`` pins one.
     """
 
     name: str
     build: Callable
     needs_chunking: bool = False
+    supports_fixed_point: bool = False
     lossless: bool = True
+    presets: tuple[str, ...] = ()
     description: str = ""
 
 
@@ -48,11 +57,19 @@ _REGISTRY: dict[str, BackendSpec] = {}
 
 
 def register_backend(name: str, *, needs_chunking: bool = False,
-                     lossless: bool = True, description: str = ""):
+                     supports_fixed_point: bool = False, lossless: bool = True,
+                     presets: tuple[str, ...] = (), description: str = ""):
     """Decorator registering a builder under `name` (last wins)."""
+    if ":" in name:
+        raise ValueError(
+            f"backend name {name!r} may not contain ':' — that separator is "
+            "reserved for preset candidate ids (e.g. 'fixed:int7')")
+
     def deco(build: Callable) -> Callable:
-        _REGISTRY[name] = BackendSpec(name=name, build=build, needs_chunking=needs_chunking,
-                                      lossless=lossless, description=description)
+        _REGISTRY[name] = BackendSpec(
+            name=name, build=build, needs_chunking=needs_chunking,
+            supports_fixed_point=supports_fixed_point, lossless=lossless,
+            presets=tuple(presets), description=description)
         return build
     return deco
 
@@ -69,15 +86,56 @@ def registered_backends() -> dict[str, BackendSpec]:
     return dict(_REGISTRY)
 
 
+# Candidate ids: "backend" or "backend:preset" ("fixed:int7").  These
+# helpers alone parse and build that spelling, as in the reference; the
+# tuner that enumerates them is ROADMAP Queue 1 item 8.
+
+def parse_candidate(candidate: str) -> tuple[str, str | None]:
+    """Split a candidate id into (backend name, preset or None), validating
+    both halves against the registry."""
+    name, _, preset = candidate.partition(":")
+    spec = get_backend(name)
+    if not preset:
+        return name, None
+    if preset not in spec.presets:
+        raise ValueError(
+            f"backend {name!r} has no preset {preset!r}; "
+            f"registered presets: {list(spec.presets) or 'none'}")
+    return name, preset
+
+
+def candidate_lossless(candidate: str) -> bool:
+    """Whether a candidate id names a lossless backend.  Unknown candidates
+    count as lossy: nothing is known about their output."""
+    try:
+        name, _preset = parse_candidate(candidate)
+    except ValueError:
+        return False
+    return _REGISTRY[name].lossless
+
+
+def build_candidate(candidate: str, ctx: EngineContext):
+    """Build a candidate id against `ctx`, overriding `ctx.fixed_preset`
+    when the id pins one; the pinned context shares the plan cache."""
+    name, preset = parse_candidate(candidate)
+    if preset is not None and preset != ctx.fixed_preset:
+        ctx = dataclasses.replace(ctx, fixed_preset=preset)
+    return _REGISTRY[name].build(ctx)
+
+
 def backend_table() -> str:
     """Markdown capability table of the registered backends, by name."""
+    def mark(flag: bool) -> str:
+        return "✓" if flag else "—"
+
     rows = [
-        "| backend | chunked | lossless | description |",
-        "|---------|---------|----------|-------------|",
+        "| backend | chunked | fixed-point | lossless | presets | description |",
+        "|---------|---------|-------------|----------|---------|-------------|",
     ]
     for s in sorted(_REGISTRY.values(), key=lambda s: s.name):
-        rows.append(f"| `{s.name}` | {'✓' if s.needs_chunking else '—'} "
-                    f"| {'✓' if s.lossless else '—'} | {s.description} |")
+        presets = " ".join(f"`{p}`" for p in s.presets) or "—"
+        rows.append(f"| `{s.name}` | {mark(s.needs_chunking)} | {mark(s.supports_fixed_point)} "
+                    f"| {mark(s.lossless)} | {presets} | {s.description} |")
     return "\n".join(rows)
 
 
@@ -89,6 +147,9 @@ class EngineContext:
     for (st, rank, mem_bytes); chunk-based backends built from one context
     share one ChunkedTensor and one set of device tensors via `plans`.
     `device` None means the CUDA card (and raises where there is none).
+    `fixed_preset` names the `fixed` backend's Qm.n preset
+    (`FIXED_PRESETS`); `lockfree_mode` emulates the paper's lock-free lost
+    updates in the backends that read it (`chunked`, `fixed`).
     """
 
     st: SparseTensor
@@ -96,6 +157,8 @@ class EngineContext:
     mem_bytes: int | None = None
     chunk_shape: tuple[int, ...] | None = None
     capacity: int | None = None
+    fixed_preset: str = "int7"
+    lockfree_mode: bool = False
     device: torch.device | str | None = None
     plans: PlanCache | None = None  # None → the process-wide default_plan_cache
 
@@ -118,6 +181,10 @@ class EngineContext:
             if self.capacity is None:
                 self.capacity = plan.capacity
         return self.chunk_shape, self.capacity
+
+    def chunked(self) -> ChunkedTensor:
+        cs, cap = self.resolve_chunking()
+        return self.plans.chunked(self.st, cs, cap)
 
     def device_arrays(self) -> dict:
         cs, cap = self.resolve_chunking()

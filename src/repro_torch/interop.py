@@ -2,7 +2,8 @@
 
 Each function takes the reference's object (or anything with the same
 attributes) and copies nothing it does not have to: host arrays stay numpy,
-factors become float32 tensors on `device`.  Nothing here imports the JAX
+factors become float32 tensors on `device`, quantized factors keep their
+integer type.  Nothing here imports the JAX
 package.
 """
 from __future__ import annotations
@@ -14,7 +15,8 @@ from .core.chunking import ChunkedTensor
 from .core.sptensor import SparseTensor
 from .device import resolve_device
 
-__all__ = ["chunked_from_reference", "factors_from_reference", "tensor_from_reference"]
+__all__ = ["chunked_from_reference", "factors_from_reference", "qfactors_from_reference",
+           "tensor_from_reference"]
 
 
 def tensor_from_reference(st) -> SparseTensor:
@@ -44,3 +46,17 @@ def factors_from_reference(factors, lam, device: str | torch.device | None = Non
     def to_tensor(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
     return [to_tensor(f) for f in factors], to_tensor(lam)
+
+
+def qfactors_from_reference(qfactors, device: str | torch.device | None = None):
+    """Quantized factors (numpy or JAX integer arrays, as `QFormat.quantize`
+    gives them) as tensors of the same integer type on `device` (None → the
+    CUDA card)."""
+    device = resolve_device(device)
+    out = []
+    for q in qfactors:
+        a = np.array(q)
+        if a.dtype.kind != "i":
+            raise TypeError(f"quantized factors must be signed integers; got {a.dtype}")
+        out.append(torch.from_numpy(a).to(device))
+    return out

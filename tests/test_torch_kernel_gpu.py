@@ -1,4 +1,5 @@
-"""The CUDA spMTTKRP kernel against its plain PyTorch version on the card.
+"""The CUDA spMTTKRP kernels, float and fixed point, against their plain
+PyTorch versions on the card.
 
 Run on a machine with an NVIDIA GPU and nvcc:
 
@@ -10,14 +11,16 @@ products are formed in the plain version's order; only the order of the
 atomic sums differs, so each entry is held to 1e-4 of the sum of the
 absolute values of its terms, which bounds the reordering error of a float32
 sum of up to ~800 terms (2·(k-1)·2^-24 ≤ 1e-4) and is several times the
-typical error well beyond that.
+typical error well beyond that.  The fixed-point kernel (paper Alg. 2) sums
+integers, so it is held to its plain version with `torch.equal`, every
+preset, every mode.
 """
 import numpy as np
 import pytest
 import torch
 
 import repro_torch as rt
-from repro_torch.kernels import mttkrp_kernel
+from repro_torch.kernels import mttkrp_fixed_kernel, mttkrp_kernel
 from repro_torch.kernels import ref as pref
 
 pytestmark = pytest.mark.gpu
@@ -112,3 +115,94 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="is on"):
         rt.mttkrp_local(factors, dev["task_chunk"].cpu(), dev["coords_rel"],
                         dev["values"], mode=0, chunk_shape=ct.chunk_shape)
+
+
+# ---------------------------------------------------------------------------
+# Fixed point (paper Alg. 2): bit for bit
+# ---------------------------------------------------------------------------
+
+def _fixed_inputs(factors, ct, dev, preset, scale=1.0):
+    """Quantized factors (L∞-normalized, then scaled) and qvalues, as the
+    `fixed` backend makes them, plus the shift parameters."""
+    qf, prec_shift = rt.FIXED_PRESETS[preset]
+    qfactors = [qf.quantize(scale * f / f.abs().amax(dim=0)) for f in factors]
+    vq = rt.value_qformat(ct.values)
+    qvalues = torch.from_numpy(vq.quantize_np(ct.values)).to(dev["values"].device)
+    return qfactors, qvalues, dict(matrix_frac=qf.frac_bits, value_frac=vq.frac_bits,
+                                   prec_shift=prec_shift)
+
+
+def _check_fixed_every_mode(factors, ct, dev, preset, scale=1.0):
+    qfactors, qvalues, q = _fixed_inputs(factors, ct, dev, preset, scale)
+    padded = [rt.pad_factor(f, ct.chunk_shape[m]) for m, f in enumerate(qfactors)]
+    args = (dev["task_chunk"], dev["coords_rel"], qvalues)
+    for mode in range(ct.ndim):
+        before = mttkrp_fixed_kernel.launches
+        got = rt.mttkrp_fixed_local(padded, *args, mode=mode, chunk_shape=ct.chunk_shape, **q)
+        assert mttkrp_fixed_kernel.launches == before + 1
+        assert got.is_cuda and got.dtype == torch.int32
+        want = pref.mttkrp_fixed_local_ref(padded, *args, mode=mode,
+                                           chunk_shape=ct.chunk_shape, **q)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"local, mode {mode}"
+        out_dim = ct.tensor_shape[mode]
+        got = rt.mttkrp_fixed_kernel_op(qfactors, *args, mode=mode, chunk_shape=ct.chunk_shape,
+                                        out_dim=out_dim, **q)
+        want = rt.mttkrp_chunked_fixed(qfactors, *args, mode=mode, chunk_shape=ct.chunk_shape,
+                                       out_dim=out_dim, **q)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"full op, mode {mode}"
+
+
+@pytest.mark.parametrize("preset", ["int3", "int7", "int15-12"])
+@pytest.mark.parametrize(("shape", "nnz", "cs", "cap", "rank"), SWEEP)
+def test_fixed_kernel_equals_plain_every_mode(cuda, shape, nnz, cs, cap, rank, preset):
+    _check_fixed_every_mode(*_inputs(shape, nnz, cs, cap, rank, cuda), preset)
+
+
+def test_fixed_kernel_one_task_many_nonzeros(cuda):
+    factors, ct, dev = _inputs((300, 200, 400), 400_000, (300, 200, 400), None, 10, cuda)
+    assert ct.num_tasks == 1
+    _check_fixed_every_mode(factors, ct, dev, "int7")
+
+
+def test_fixed_kernel_split_powerlaw_chunks_five_modes(cuda):
+    factors, ct, dev = _inputs((16, 42, 16, 42, 868), 30_000, (16, 42, 16, 42, 109), 512, 10,
+                               cuda, distribution="powerlaw")
+    assert ct.num_tasks > ct.grid[-1]
+    _check_fixed_every_mode(factors, ct, dev, "int15-12")
+
+
+def test_fixed_kernel_wraps_like_the_plain_version(cuda):
+    """Factors in [-4, 4] under Q17.15: int32 products overflow and wrap."""
+    factors, ct, dev = _inputs((40, 30, 50), 600, (16, 8, 16), 32, 8, cuda)
+    qfactors, _, _ = _fixed_inputs(factors, ct, dev, "int15-12", scale=4.0)
+    assert int(qfactors[1].abs().max()) * int(qfactors[2].abs().max()) > 2**31
+    _check_fixed_every_mode(factors, ct, dev, "int15-12", scale=4.0)
+
+
+def test_fixed_kernel_wrapper_rejects_what_it_cannot_take(cuda):
+    factors, ct, dev = _inputs((32, 32, 32), 400, (8, 8, 8), 16, 4, cuda)
+    qfactors, qvalues, q = _fixed_inputs(factors, ct, dev, "int3")
+    args = (dev["task_chunk"], dev["coords_rel"], qvalues)
+    kw = dict(mode=0, chunk_shape=ct.chunk_shape)
+    # int3's int8 factors declared as int15-12's Q.15
+    with pytest.raises(TypeError, match="cannot hold 15 fractional bits"):
+        rt.mttkrp_fixed_local(qfactors, *args, **kw, matrix_frac=15, value_frac=q["value_frac"],
+                              prec_shift=3)
+    with pytest.raises(TypeError, match="qfactors must be"):
+        rt.mttkrp_fixed_local(factors, *args, **kw, **q)
+    with pytest.raises(TypeError, match="must be torch.int8"):
+        rt.mttkrp_fixed_local([qfactors[0], qfactors[1].to(torch.int16), qfactors[2]], *args,
+                              **kw, **q)
+    with pytest.raises(TypeError, match="qvalues must be"):
+        rt.mttkrp_fixed_local(qfactors, dev["task_chunk"], dev["coords_rel"], dev["values"],
+                              **kw, **q)
+    with pytest.raises(TypeError, match="int32"):
+        rt.mttkrp_fixed_local(qfactors, dev["task_chunk"].long(), dev["coords_rel"], qvalues,
+                              **kw, **q)
+    with pytest.raises(ValueError, match="is on"):
+        rt.mttkrp_fixed_local([qfactors[0], qfactors[1].cpu(), qfactors[2]], *args, **kw, **q)
+    with pytest.raises(ValueError, match="is on"):
+        rt.mttkrp_fixed_local(qfactors, dev["task_chunk"].cpu(), dev["coords_rel"], qvalues,
+                              **kw, **q)
