@@ -6,9 +6,12 @@
 Phases, each fatal on failure:
   1. device check: a CUDA card is required; print its name and power limit;
   2. build both CUDA kernels with nvcc (one process each, started together)
-     and print what ptxas reports;
+     and print what ptxas reports for each kernel instantiation (registers,
+     spills);
   3. hold the float kernel against its plain PyTorch version on the card,
-     every mode, local partials and the full op, for
+     every mode, local partials and the full op (with `nnz_per_task`, as
+     the engines call them), printing each launch's tier, blocks per task
+     and shared-memory bytes, for
        (a) NELL-2's published dims and nnz, uniform, seed 0, R = 10, under the
            256 KiB plan of examples/decompose_tensor.py,
        (b) the same tensor under the engine's default 64 MiB plan,
@@ -17,7 +20,9 @@ Phases, each fatal on failure:
      3f. hold the fixed-point kernel (paper Alg. 2) against its plain version
      bit for bit on the same cases: presets int7 and int15-12 everywhere,
      int3 (int8 factors) in (a); print each preset's accumulator bound
-     beside the largest per-output-row nonzero count;
+     beside the largest per-output-row nonzero count; then time both
+     kernels per mode at (b) (float, int7) and (c) (float, int15-12)
+     beside their bounds;
   4. the float path: cp_als on tensor (a) through the `kernel` engine built
      as the example builds it; the float kernel must launch n_iters × 3
      times (the fixed one never), and the fit and factors must follow the
@@ -36,7 +41,9 @@ Phases, each fatal on failure:
      planted rank-3 cube of side 180 (every cell present) where the fit
      means something;
   5. time both kernels per mode at case (a) with CUDA events beside their
-     plain versions and their bounds, and the engines' steady iterations;
+     plain versions, their global tier (the first design, without
+     `nnz_per_task`) in turns (plain, global, kernel, kernel, global,
+     plain) and their bounds, and the engines' steady iterations;
   6. print the `kernels` line, then, last, the device line.
 
 Tolerance (phases 3 and 4): the float kernel forms each nonzero's product
@@ -52,6 +59,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -65,7 +73,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch as rt  # noqa: E402
 from repro_torch.engine import PlanCache, default_plan_cache  # noqa: E402
-from repro_torch.kernels import _build, mttkrp_fixed_kernel, mttkrp_kernel  # noqa: E402
+from repro_torch.kernels import _build, mttkrp_fixed_kernel, mttkrp_kernel, tiles  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 
 RANK = 10
@@ -170,6 +178,37 @@ def fixed_kernel_bound(st, ct, mode: int, live: int, factor_bytes: int,
     return (*bound(nbytes, ops, I32_OPS), nbytes, ops)
 
 
+def ptxas_summary(build_log: str) -> list[str]:
+    """One line per compiled kernel: its template arguments, registers and
+    spills, from what `nvcc -Xptxas -v` printed."""
+    types = {"a": "int8", "s": "int16", "i": "int32"}
+    lines, name = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            kind = "task_kernel" if "task_kernel" in mangled else "global_kernel"
+            pol = re.search(r"FixedPolicyI(\w)(\w)E", mangled)
+            policy = (f"fixed<{types[pol.group(1)]} factors, {types[pol.group(2)]} values>"
+                      if pol else "float")
+            n = re.search(r"ELi(\d+)EEEv", mangled)
+            modes = "" if n is None else f", N={n.group(1) if n.group(1) != '0' else 'any'}"
+            name, spills = f"{kind}<{policy}{modes}>", ""
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "Used" in line:
+            lines.append(f"{name}: {line.split('info    :')[-1].strip()}; {spills}")
+            name = None
+    return lines
+
+
+def plan_of(st, ct, mode, factor_bytes=4, value_bytes=4, tier=None) -> tiles.LaunchPlan:
+    """The launch plan the wrappers take for one mode of a case on this card."""
+    return tiles.plan_launch(ct.num_tasks, ct.capacity, ct.chunk_shape, mode, RANK,
+                             factor_bytes=factor_bytes, value_bytes=value_bytes,
+                             smem_budget=tiles.device_budget(torch.device("cuda", 0)), tier=tier)
+
+
 def steady(iter_times) -> float:
     """Mean of the iterations after the first (which carries set-up), in ms."""
     return 1e3 * float(np.mean(iter_times[1:]))
@@ -185,11 +224,12 @@ def check_case(label, st, ct, dev, device) -> float:
     abs_factors = [f.abs() for f in factors]
     padded = [rt.pad_factor(f, cs[m]) for m, f in enumerate(factors)]
     abs_padded = [rt.pad_factor(f, cs[m]) for m, f in enumerate(abs_factors)]
-    tc, cr, vals = dev["task_chunk"], dev["coords_rel"], dev["values"]
+    tc, cr, vals, nnz = dev["task_chunk"], dev["coords_rel"], dev["values"], dev["nnz_per_task"]
     abs_vals = vals.abs()
     worst = 0.0
     for mode in range(st.ndim):
-        got = rt.mttkrp_local(padded, tc, cr, vals, mode=mode, chunk_shape=cs)
+        log(f"[3]   mode {mode}: {plan_of(st, ct, mode)}")
+        got = rt.mttkrp_local(padded, tc, cr, vals, mode=mode, chunk_shape=cs, nnz_per_task=nnz)
         want = kref.mttkrp_local_ref(padded, tc, cr, vals, mode=mode, chunk_shape=cs)
         terms = kref.mttkrp_local_ref(abs_padded, tc, cr, abs_vals, mode=mode, chunk_shape=cs)
         torch.cuda.synchronize()
@@ -197,7 +237,7 @@ def check_case(label, st, ct, dev, device) -> float:
         del got, want, terms
         out_dim = st.shape[mode]
         got = rt.mttkrp_kernel_op(factors, tc, cr, vals, mode=mode, chunk_shape=cs,
-                                  out_dim=out_dim)
+                                  out_dim=out_dim, nnz_per_task=nnz)
         want = rt.mttkrp_chunked(factors, tc, cr, vals, mode=mode, chunk_shape=cs,
                                  out_dim=out_dim)
         terms = rt.mttkrp_chunked(abs_factors, tc, cr, abs_vals, mode=mode, chunk_shape=cs,
@@ -234,7 +274,7 @@ def check_fixed_case(label, st, ct, dev, device, presets) -> int:
     cs = ct.chunk_shape
     row_nnz = [int(np.bincount(st.coords[:, m], minlength=st.shape[m]).max())
                for m in range(st.ndim)]
-    tc, cr = dev["task_chunk"], dev["coords_rel"]
+    tc, cr, nnz = dev["task_chunk"], dev["coords_rel"], dev["nnz_per_task"]
     worst = 0
     for preset in presets:
         qfactors, qvalues, q = fixed_inputs(st, ct, device, preset)
@@ -244,14 +284,17 @@ def check_fixed_case(label, st, ct, dev, device, presets) -> int:
             f"({'within' if max(row_nnz) <= safe else 'EXCEEDED: the int32 sums may wrap'})")
         padded = [rt.pad_factor(f, cs[m]) for m, f in enumerate(qfactors)]
         for mode in range(st.ndim):
-            got = rt.mttkrp_fixed_local(padded, tc, cr, qvalues, mode=mode, chunk_shape=cs, **q)
+            log(f"[3f]   mode {mode}: "
+                f"{plan_of(st, ct, mode, qfactors[0].element_size(), qvalues.element_size())}")
+            got = rt.mttkrp_fixed_local(padded, tc, cr, qvalues, mode=mode, chunk_shape=cs,
+                                        nnz_per_task=nnz, **q)
             want = kref.mttkrp_fixed_local_ref(padded, tc, cr, qvalues, mode=mode,
                                                chunk_shape=cs, **q)
             local_ok, local_err = bool(torch.equal(got, want)), int_error(got, want)
             del got, want
             out_dim = st.shape[mode]
             got = rt.mttkrp_fixed_kernel_op(qfactors, tc, cr, qvalues, mode=mode, chunk_shape=cs,
-                                            out_dim=out_dim, **q)
+                                            out_dim=out_dim, nnz_per_task=nnz, **q)
             want = rt.mttkrp_chunked_fixed(qfactors, tc, cr, qvalues, mode=mode, chunk_shape=cs,
                                            out_dim=out_dim, **q)
             op_ok, op_err = bool(torch.equal(got, want)), int_error(got, want)
@@ -263,6 +306,33 @@ def check_fixed_case(label, st, ct, dev, device, presets) -> int:
                 fail(f"case {label} {preset} mode {mode}: the fixed kernel differs from its "
                      f"plain version by up to {max(local_err, op_err)}")
     return worst
+
+
+def time_case(label, st, ct, dev, device, preset) -> None:
+    """Per-mode kernel times of a case beside their bounds: the float kernel
+    and the fixed one with `preset`, each as the engines launch it."""
+    cs, tc, cr = ct.chunk_shape, dev["task_chunk"], dev["coords_rel"]
+    nnz = dev["nnz_per_task"]
+    factors = [rt.pad_factor(f, cs[m])
+               for m, f in enumerate(rt.init_factors(st.shape, RANK, seed=0, device=device))]
+    qfactors, qvalues, q = fixed_inputs(st, ct, device, preset)
+    qfactors = [rt.pad_factor(f, cs[m]) for m, f in enumerate(qfactors)]
+    live = int(torch.count_nonzero(qvalues))
+    for mode in range(st.ndim):
+        ms = time_ms(lambda mode=mode: rt.mttkrp_local(
+            factors, tc, cr, dev["values"], mode=mode, chunk_shape=cs, nnz_per_task=nnz), 10)
+        fms = time_ms(lambda mode=mode: rt.mttkrp_fixed_local(
+            qfactors, tc, cr, qvalues, mode=mode, chunk_shape=cs, nnz_per_task=nnz, **q), 10)
+        b, by, _, _ = kernel_bound(st, ct, mode)
+        fb, fby, _, _ = fixed_kernel_bound(st, ct, mode, live, qfactors[0].element_size(),
+                                           qvalues.element_size())
+        plan = plan_of(st, ct, mode)
+        fplan = plan_of(st, ct, mode, qfactors[0].element_size(), qvalues.element_size())
+        log(f"[5{label}] mode {mode}: " + json.dumps(dict(
+            float_ms=ms, float_bound_ms=b, float_bound_by=by, float_tier=plan.tier,
+            float_blocks_per_task=plan.blocks_per_task, fixed_preset=preset, fixed_ms=fms,
+            fixed_bound_ms=fb, fixed_bound_by=fby, fixed_tier=fplan.tier,
+            fixed_blocks_per_task=fplan.blocks_per_task)))
 
 
 def plain_fixed_engine(engine: rt.Engine) -> rt.Engine:
@@ -415,7 +485,8 @@ def main() -> int:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     log(smi.splitlines()[0])
     log(f"[1] torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}, "
+        f"shared memory per block {tiles.device_budget(device)} B")
     # Full float32 matrix products (the reference's precision), never TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -427,9 +498,8 @@ def main() -> int:
     _build.build(sources)
     log(f"[2] built csrc/{{{', '.join(sources)}}}.cu in {time.perf_counter() - t0:.1f}s")
     for name in sources:
-        for line in _build.build_log(name).splitlines():
-            if "ptxas" in line or "spill" in line:
-                log(f"[2]   {name}: {line.strip()}")
+        for line in ptxas_summary(_build.build_log(name)):
+            log(f"[2]   {name}: {line}")
 
     # 3. Kernels vs plain, cases (a), (b), (c).
     t0 = time.perf_counter()
@@ -452,6 +522,7 @@ def main() -> int:
     worst = max(worst, check_case("b (NELL-2, default 64 MiB plan)", st_a, ct_b, dev_b, device))
     worst_fixed = max(worst_fixed, check_fixed_case("b", st_a, ct_b, dev_b, device,
                                                     ["int7", "int15-12"]))
+    time_case("b", st_a, ct_b, dev_b, device, "int7")
     del side, ct_b, dev_b
     t0 = time.perf_counter()
     st_c = rt.random_tensor(LBNL["shape"], LBNL["nnz"], distribution=LBNL["distribution"], seed=0)
@@ -464,6 +535,7 @@ def main() -> int:
     worst = max(worst, check_case("c (LBNL, 256 KiB plan)", st_c, ct_c, dev_c, device))
     worst_fixed = max(worst_fixed, check_fixed_case("c", st_c, ct_c, dev_c, device,
                                                     ["int7", "int15-12"]))
+    time_case("c", st_c, ct_c, dev_c, device, "int15-12")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -559,60 +631,70 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # 5. Timing at case (a)'s shapes, plain and kernel in turns.
+    # 5. Timing at case (a)'s shapes: plain, global tier (the first
+    # design: no nnz_per_task), kernel as the engine launches it, in turns.
     factors = [rt.pad_factor(f, plan_a.chunk_shape[m])
                for m, f in enumerate(rt.init_factors(st_a.shape, RANK, seed=0, device=device))]
-    tc, cr, vals = dev_a["task_chunk"], dev_a["coords_rel"], dev_a["values"]
+    tc, cr, vals, nnz = (dev_a["task_chunk"], dev_a["coords_rel"], dev_a["values"],
+                         dev_a["nnz_per_task"])
+    cs = ct_a.chunk_shape
+
+    def in_turns(plain, kernel, global_tier) -> dict:
+        p1, g1, k1, k2, g2, p2 = (time_ms(plain, 3), time_ms(global_tier, 10),
+                                  time_ms(kernel, 10), time_ms(kernel, 10),
+                                  time_ms(global_tier, 10), time_ms(plain, 3))
+        return dict(ms=(k1 + k2) / 2, global_ms=(g1 + g2) / 2, plain_ms=(p1 + p2) / 2,
+                    ms_runs=[k1, k2], global_ms_runs=[g1, g2], plain_ms_runs=[p1, p2])
+
     modes = []
     for mode in range(st_a.ndim):
-        def kernel(mode=mode):
-            return rt.mttkrp_local(factors, tc, cr, vals, mode=mode, chunk_shape=ct_a.chunk_shape)
-
-        def plain_local(mode=mode):
-            return kref.mttkrp_local_ref(factors, tc, cr, vals, mode=mode,
-                                         chunk_shape=ct_a.chunk_shape)
-
-        def full_op(mode=mode):
-            return rt.mttkrp_kernel_op(factors, tc, cr, vals, mode=mode,
-                                       chunk_shape=ct_a.chunk_shape, out_dim=st_a.shape[mode])
-        p1, k1, k2, p2 = (time_ms(plain_local, 3), time_ms(kernel, 10),
-                          time_ms(kernel, 10), time_ms(plain_local, 3))
-        op = time_ms(full_op, 10)
+        g_plan = plan_of(st_a, ct_a, mode, tier="global")
+        times = in_turns(
+            lambda mode=mode: kref.mttkrp_local_ref(factors, tc, cr, vals, mode=mode,
+                                                    chunk_shape=cs),
+            lambda mode=mode: rt.mttkrp_local(factors, tc, cr, vals, mode=mode, chunk_shape=cs,
+                                              nnz_per_task=nnz),
+            lambda mode=mode, g_plan=g_plan: rt.mttkrp_local(factors, tc, cr, vals, mode=mode,
+                                                             chunk_shape=cs, plan=g_plan))
+        op = time_ms(lambda mode=mode: rt.mttkrp_kernel_op(
+            factors, tc, cr, vals, mode=mode, chunk_shape=cs, out_dim=st_a.shape[mode],
+            nnz_per_task=nnz), 10)
         bound_ms, bound_by, nbytes, ops = kernel_bound(st_a, ct_a, mode)
-        row = dict(mode=mode, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, op_ms=op,
-                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
-                   ms_runs=[k1, k2], plain_ms_runs=[p1, p2])
+        row = dict(mode=mode, **times, op_ms=op, bound_ms=bound_ms, bound_by=bound_by,
+                   bytes=nbytes, ops=ops, share_of_bound=bound_ms / times["ms"],
+                   tier=plan_of(st_a, ct_a, mode).tier)
         modes.append(row)
         log(f"[5] mode {mode}: " + json.dumps(row))
 
     # 5f. The fixed kernel at case (a), int7 (the NELL-2 main path's preset).
     qfactors, qvalues, q = fixed_inputs(st_a, ct_a, device, "int7")
     qpadded = [rt.pad_factor(f, plan_a.chunk_shape[m]) for m, f in enumerate(qfactors)]
+    fb, vb = qfactors[0].element_size(), qvalues.element_size()
     live = int(torch.count_nonzero(qvalues))
     fixed_modes = []
     for mode in range(st_a.ndim):
-        def fkernel(mode=mode):
-            return rt.mttkrp_fixed_local(qpadded, tc, cr, qvalues, mode=mode,
-                                         chunk_shape=ct_a.chunk_shape, **q)
-
-        def fplain(mode=mode):
-            return kref.mttkrp_fixed_local_ref(qpadded, tc, cr, qvalues, mode=mode,
-                                               chunk_shape=ct_a.chunk_shape, **q)
-
-        def fop(mode=mode):
-            return rt.mttkrp_fixed_kernel_op(qfactors, tc, cr, qvalues, mode=mode,
-                                             chunk_shape=ct_a.chunk_shape,
-                                             out_dim=st_a.shape[mode], **q)
-        p1, k1, k2, p2 = (time_ms(fplain, 3), time_ms(fkernel, 10),
-                          time_ms(fkernel, 10), time_ms(fplain, 3))
-        op = time_ms(fop, 10)
-        bound_ms, bound_by, nbytes, ops = fixed_kernel_bound(
-            st_a, ct_a, mode, live, qfactors[0].element_size(), qvalues.element_size())
-        row = dict(mode=mode, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, op_ms=op,
-                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops, live=live,
-                   ms_runs=[k1, k2], plain_ms_runs=[p1, p2])
+        g_plan = plan_of(st_a, ct_a, mode, fb, vb, tier="global")
+        times = in_turns(
+            lambda mode=mode: kref.mttkrp_fixed_local_ref(qpadded, tc, cr, qvalues, mode=mode,
+                                                          chunk_shape=cs, **q),
+            lambda mode=mode: rt.mttkrp_fixed_local(qpadded, tc, cr, qvalues, mode=mode,
+                                                    chunk_shape=cs, nnz_per_task=nnz, **q),
+            lambda mode=mode, g_plan=g_plan: rt.mttkrp_fixed_local(
+                qpadded, tc, cr, qvalues, mode=mode, chunk_shape=cs, plan=g_plan, **q))
+        op = time_ms(lambda mode=mode: rt.mttkrp_fixed_kernel_op(
+            qfactors, tc, cr, qvalues, mode=mode, chunk_shape=cs, out_dim=st_a.shape[mode],
+            nnz_per_task=nnz, **q), 10)
+        bound_ms, bound_by, nbytes, ops = fixed_kernel_bound(st_a, ct_a, mode, live, fb, vb)
+        row = dict(mode=mode, **times, op_ms=op, bound_ms=bound_ms, bound_by=bound_by,
+                   bytes=nbytes, ops=ops, live=live, share_of_bound=bound_ms / times["ms"],
+                   tier=plan_of(st_a, ct_a, mode, fb, vb).tier)
         fixed_modes.append(row)
         log(f"[5f] mode {mode}: " + json.dumps(row))
+    slower = [kind for kind, rows in (("float", modes), ("fixed", fixed_modes))
+              if not all(r["ms"] < r["global_ms"] for r in rows)]
+    if slower:
+        fail(f"at case (a) the {' and '.join(slower)} kernel is not faster than its global "
+             f"tier (the first design) in every mode")
     log(f"[5f] steady cp_als iteration at (a): fixed int7 {steady(fixed_iter_times):.3f} ms, "
         f"float kernel {steady(float_iter_times):.3f} ms")
     smi_after = subprocess.run(

@@ -57,11 +57,13 @@ def mttkrp_coo(factors, coords, values, *, mode: int, out_dim: int) -> torch.Ten
 
 def chunked_device_arrays(ct: ChunkedTensor, device: torch.device) -> dict:
     """The static per-run arrays, moved to `device` once (the tensor stays
-    resident across CP-ALS iterations; only factors change)."""
+    resident across CP-ALS iterations; only factors change).  The kernels
+    read `nnz_per_task` to stop at each task's live slots."""
     return dict(
         task_chunk=torch.from_numpy(ct.task_chunk).to(device),
         coords_rel=torch.from_numpy(ct.coords_rel).to(device),
         values=torch.from_numpy(ct.values).to(device),
+        nnz_per_task=torch.from_numpy(ct.nnz_per_task).to(device),
     )
 
 

@@ -30,11 +30,9 @@ from .registry import EngineContext, register_backend
 __all__ = []  # backends are reached through the registry, not by import
 
 
-def _nnz_per_task(ctx: EngineContext):
-    """The per-task nonzero counts on the device when lock-free mode is on."""
-    if not ctx.lockfree_mode:
-        return None
-    return torch.from_numpy(ctx.chunked().nnz_per_task).to(ctx.device)
+def _lockfree_nnz(ctx: EngineContext, dev: dict):
+    """The resident per-task nonzero counts when lock-free mode is on."""
+    return dev["nnz_per_task"] if ctx.lockfree_mode else None
 
 
 @register_backend("ref", description="plain COO scatter-add reference (paper Fig. 1)")
@@ -53,7 +51,7 @@ def _build_ref(ctx: EngineContext):
 def _build_chunked(ctx: EngineContext):
     dev = ctx.device_arrays()
     cs, shape = ctx.chunk_shape, ctx.st.shape
-    nnz_pt = _nnz_per_task(ctx)
+    nnz_pt = _lockfree_nnz(ctx, dev)
 
     def engine(factors, mode):
         vals = dev["values"]
@@ -74,7 +72,7 @@ def _build_kernel(ctx: EngineContext):
     def engine(factors, mode):
         return kops.mttkrp_kernel_op(
             factors, dev["task_chunk"], dev["coords_rel"], dev["values"],
-            mode=mode, chunk_shape=cs, out_dim=shape[mode])
+            mode=mode, chunk_shape=cs, out_dim=shape[mode], nnz_per_task=dev["nnz_per_task"])
     return engine
 
 
@@ -90,7 +88,7 @@ def _build_fixed(ctx: EngineContext):
     # The values are quantized once, on the host, to the runtime 16-bit format.
     vq = value_qformat(ctx.st.values, storage_bits=16)
     qvalues = torch.from_numpy(vq.quantize_np(ct.values)).to(ctx.device)
-    nnz_pt = _nnz_per_task(ctx)
+    nnz_pt = _lockfree_nnz(ctx, dev)
 
     def engine(factors, mode):
         qfactors = [qf.quantize(f) for f in factors]
@@ -101,6 +99,7 @@ def _build_fixed(ctx: EngineContext):
         qout = kops.mttkrp_fixed_kernel_op(
             qfactors, dev["task_chunk"], dev["coords_rel"], qvals,
             mode=mode, chunk_shape=cs, out_dim=shape[mode],
-            matrix_frac=qf.frac_bits, value_frac=vq.frac_bits, prec_shift=prec_shift)
+            matrix_frac=qf.frac_bits, value_frac=vq.frac_bits, prec_shift=prec_shift,
+            nnz_per_task=dev["nnz_per_task"])
         return mttkrp.dequantize_output(qout, qf.frac_bits, prec_shift)
     return engine

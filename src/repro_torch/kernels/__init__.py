@@ -1,9 +1,11 @@
 """Hand-written CUDA kernels for the PRISM spMTTKRP hot spot.
 
-`csrc/` holds the CUDA sources and `_build` compiles them at first use;
-`mttkrp_kernel` wraps the float kernel, `mttkrp_fixed_kernel` the
-fixed-point one (paper Alg. 2), `ops` the padded full ops, `ref` the plain
-PyTorch versions.  Importing this package builds nothing.
+`csrc/` holds the CUDA sources (two kernels on one tiling,
+`csrc/mttkrp_tiles.cuh`) and `_build` compiles them at first use; `tiles`
+plans each launch (tier, blocks per task, shared memory); `mttkrp_kernel`
+wraps the float kernel, `mttkrp_fixed_kernel` the fixed-point one (paper
+Alg. 2), `ops` the padded full ops, `ref` the plain PyTorch versions.
+Importing this package builds nothing.
 """
 from .mttkrp_fixed_kernel import mttkrp_fixed_local
 from .mttkrp_kernel import mttkrp_local

@@ -2,7 +2,8 @@
 
 Each source in `csrc/` is compiled by nvcc, at first use, into a shared
 library with a plain C interface under `build/kernels/` at the repository
-root, named by a hash of the source and the flags, and loaded with ctypes.
+root, named by a hash of the source, the shared headers (`csrc/*.cuh`) and
+the flags, and loaded with ctypes.
 Nothing is built when a module is imported.  A failed build raises.
 """
 from __future__ import annotations
@@ -35,7 +36,9 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    # The headers count too: a change to a shared .cuh rebuilds every source.
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

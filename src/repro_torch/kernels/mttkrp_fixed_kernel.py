@@ -2,10 +2,10 @@
 hand-written CUDA kernel `csrc/mttkrp_fixed.cu`, the port of the TPU kernel
 `repro.kernels.mttkrp_fixed_kernel.mttkrp_fixed_pallas_local`.
 
-`mttkrp_fixed_local` launches the kernel for CUDA tensors and raises if it
-cannot; for CPU tensors it runs the plain version,
-`ref.mttkrp_fixed_local_ref`.  `launches` counts kernel launches
-(plain-version calls are not counted).
+`mttkrp_fixed_local` launches the kernel for CUDA tensors, in the tier that
+`tiles.plan_launch` picks, and raises if it cannot; for CPU tensors it runs
+the plain version, `ref.mttkrp_fixed_local_ref`.  `launches` counts kernel
+launches (plain-version calls are not counted).
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from . import _build, ref
+from . import _build, ref, tiles
 
 __all__ = ["launches", "mttkrp_fixed_local"]
 
@@ -30,8 +30,7 @@ def _entry():
     fn = lib.prism_mttkrp_fixed_local
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = tiles.entry_argtypes(4)
         lib.prism_cuda_error_string.restype = ctypes.c_char_p
         lib.prism_cuda_error_string.argtypes = [ctypes.c_int]
     return lib, fn
@@ -80,47 +79,51 @@ def _check(qfactors, task_chunk, coords_rel, qvalues, mode, chunk_shape,
 
 def mttkrp_fixed_local(qfactors, task_chunk, coords_rel, qvalues, *, mode: int,
                        chunk_shape: tuple[int, ...], matrix_frac: int, value_frac: int,
-                       prec_shift: int = 0) -> torch.Tensor:
+                       prec_shift: int = 0, nnz_per_task: torch.Tensor | None = None,
+                       plan: tiles.LaunchPlan | None = None) -> torch.Tensor:
     """Fixed-point per-task partials: returns (T, S_mode, R) int32 chunk-local
     blocks in Q(·, matrix_frac - prec_shift).
 
-    qfactors  : sequence of (rows_m, R), all int8, int16 or int32 (by preset;
-                ops.py pads rows to whole chunks)
-    task_chunk: (T, N) int32; coords_rel: (T, P, N) int32;
-    qvalues   : (T, P) int16 or int32.
+    qfactors    : sequence of (rows_m, R), all int8, int16 or int32 (by preset;
+                  ops.py pads rows to whole chunks)
+    task_chunk  : (T, N) int32; coords_rel: (T, P, N) int32;
+    qvalues     : (T, P) int16 or int32.
+    nnz_per_task: optional (T,) int32 live slots per task; the kernel reads no
+                  slot at or past it (the caller guarantees those hold 0).
+                  The plain version ignores it.
+    plan        : a `tiles.plan_launch` result to launch instead of the one
+                  chosen from the shapes and the card's shared memory.
     """
     global launches
     if coords_rel.device.type == "cpu":
         return ref.mttkrp_fixed_local_ref(
             qfactors, task_chunk, coords_rel, qvalues, mode=mode, chunk_shape=chunk_shape,
-            matrix_frac=matrix_frac, value_frac=value_frac, prec_shift=prec_shift)
+            matrix_frac=matrix_frac, value_frac=value_frac, prec_shift=prec_shift,
+            nnz_per_task=nnz_per_task)
     if coords_rel.device.type != "cuda":
         raise ValueError(f"no kernel for device {coords_rel.device}")
     _check(qfactors, task_chunk, coords_rel, qvalues, mode, chunk_shape,
            matrix_frac, value_frac, prec_shift)
+    tiles.check_nnz_per_task(nnz_per_task, coords_rel)
     t, p, n = coords_rel.shape
     rank = qfactors[0].shape[1]
     device = coords_rel.device
-    local = torch.zeros((t, chunk_shape[mode], rank), dtype=torch.int32, device=device)
+    shape = (t, chunk_shape[mode], rank)
     if t == 0 or p == 0 or rank == 0:
-        return local
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+    factor_bytes, value_bytes = qfactors[0].element_size(), qvalues.element_size()
+    if plan is None:
+        plan = tiles.plan_launch(t, p, chunk_shape, mode, rank, factor_bytes=factor_bytes,
+                                 value_bytes=value_bytes, smem_budget=tiles.device_budget(device))
     lib, fn = _entry()
-    # (3, N): factor address, factor rows, chunk size per mode.  Pinned and
-    # copied without blocking, so the launch adds no host synchronisation.
-    meta = torch.tensor(
-        [[0 if m == mode else f.data_ptr() for m, f in enumerate(qfactors)],
-         [f.shape[0] for f in qfactors],
-         list(chunk_shape)], dtype=torch.int64).pin_memory()
-    meta = meta.to(device, non_blocking=True)
+    local = tiles.new_output(plan, shape, torch.int32, device)
+    meta, *launch = tiles.launch_args(qfactors, mode, chunk_shape, plan, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(task_chunk.data_ptr(), coords_rel.data_ptr(), qvalues.data_ptr(),
-                meta.data_ptr(), local.data_ptr(), t, p, n, rank, mode, matrix_frac,
-                value_frac + prec_shift, qfactors[0].element_size(), qvalues.element_size(),
-                stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"mttkrp_fixed kernel launch failed: {lib.prism_cuda_error_string(rc).decode()} "
-            f"({rc})")
+                meta.data_ptr(), 0 if nnz_per_task is None else nnz_per_task.data_ptr(),
+                local.data_ptr(), t, p, n, rank, mode, *launch, matrix_frac,
+                value_frac + prec_shift, factor_bytes, value_bytes, stream)
+    tiles.raise_on(rc, lib, "mttkrp_fixed", plan)
     launches += 1
     return local

@@ -2,9 +2,12 @@
 `csrc/mttkrp.cu`, the port of the TPU kernel
 `repro.kernels.mttkrp_kernel.mttkrp_pallas_local`.
 
-`mttkrp_local` launches the kernel for CUDA tensors and raises if it cannot;
-for CPU tensors it runs the plain version, `ref.mttkrp_local_ref`.
-`launches` counts kernel launches (plain-version calls are not counted).
+`mttkrp_local` launches the kernel for CUDA tensors, in the tier that
+`tiles.plan_launch` picks from the shapes and the card's shared memory,
+and raises if it cannot (a refused launch never falls back to another tier
+or to the plain version); for CPU tensors it runs the plain version,
+`ref.mttkrp_local_ref`.  `launches` counts kernel launches (plain-version
+calls are not counted).
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ import ctypes
 
 import torch
 
-from . import _build, ref
+from . import _build, ref, tiles
 
 __all__ = ["launches", "mttkrp_local"]
 
@@ -27,9 +30,7 @@ def _entry():
     fn = lib.prism_mttkrp_local_f32
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = tiles.entry_argtypes(0)
         lib.prism_cuda_error_string.restype = ctypes.c_char_p
         lib.prism_cuda_error_string.argtypes = [ctypes.c_int]
     return lib, fn
@@ -64,40 +65,44 @@ def _check(factors, task_chunk, coords_rel, values, mode, chunk_shape):
             raise ValueError(f"factors[{m}] must be (rows >= 1, {rank}); got {tuple(f.shape)}")
 
 
-def mttkrp_local(factors, task_chunk, coords_rel, values, *,
-                 mode: int, chunk_shape: tuple[int, ...]) -> torch.Tensor:
+def mttkrp_local(factors, task_chunk, coords_rel, values, *, mode: int,
+                 chunk_shape: tuple[int, ...], nnz_per_task: torch.Tensor | None = None,
+                 plan: tiles.LaunchPlan | None = None) -> torch.Tensor:
     """Per-task partial MTTKRP: returns (T, S_mode, R) f32 chunk-local blocks.
 
-    factors   : sequence of (rows_m, R) f32 (ops.py pads rows to whole chunks)
-    task_chunk: (T, N) int32; coords_rel: (T, P, N) int32; values: (T, P) f32.
+    factors     : sequence of (rows_m, R) f32 (ops.py pads rows to whole chunks)
+    task_chunk  : (T, N) int32; coords_rel: (T, P, N) int32; values: (T, P) f32.
+    nnz_per_task: optional (T,) int32 live slots per task; the kernel reads no
+                  slot at or past it (the caller guarantees those hold 0).
+                  The plain version ignores it.
+    plan        : a `tiles.plan_launch` result to launch instead of the one
+                  chosen from the shapes and the card's shared memory.
     """
     global launches
     if coords_rel.device.type == "cpu":
-        return ref.mttkrp_local_ref(factors, task_chunk, coords_rel, values,
-                                    mode=mode, chunk_shape=chunk_shape)
+        return ref.mttkrp_local_ref(factors, task_chunk, coords_rel, values, mode=mode,
+                                    chunk_shape=chunk_shape, nnz_per_task=nnz_per_task)
     if coords_rel.device.type != "cuda":
         raise ValueError(f"no kernel for device {coords_rel.device}")
     _check(factors, task_chunk, coords_rel, values, mode, chunk_shape)
+    tiles.check_nnz_per_task(nnz_per_task, coords_rel)
     t, p, n = coords_rel.shape
     rank = factors[0].shape[1]
     device = coords_rel.device
-    local = torch.zeros((t, chunk_shape[mode], rank), dtype=torch.float32, device=device)
+    shape = (t, chunk_shape[mode], rank)
     if t == 0 or p == 0 or rank == 0:
-        return local
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    if plan is None:
+        plan = tiles.plan_launch(t, p, chunk_shape, mode, rank,
+                                 smem_budget=tiles.device_budget(device))
     lib, fn = _entry()
-    # (3, N): factor address, factor rows, chunk size per mode.  Pinned and
-    # copied without blocking, so the launch adds no host synchronisation.
-    meta = torch.tensor(
-        [[0 if m == mode else f.data_ptr() for m, f in enumerate(factors)],
-         [f.shape[0] for f in factors],
-         list(chunk_shape)], dtype=torch.int64).pin_memory()
-    meta = meta.to(device, non_blocking=True)
+    local = tiles.new_output(plan, shape, torch.float32, device)
+    meta, *launch = tiles.launch_args(factors, mode, chunk_shape, plan, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(task_chunk.data_ptr(), coords_rel.data_ptr(), values.data_ptr(),
-                meta.data_ptr(), local.data_ptr(), t, p, n, rank, mode, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"mttkrp kernel launch failed: {lib.prism_cuda_error_string(rc).decode()} ({rc})")
+                meta.data_ptr(), 0 if nnz_per_task is None else nnz_per_task.data_ptr(),
+                local.data_ptr(), t, p, n, rank, mode, *launch, stream)
+    tiles.raise_on(rc, lib, "mttkrp", plan)
     launches += 1
     return local

@@ -12,11 +12,12 @@ from ..core.mttkrp import _fixed_partials, chunk_offsets, index_add_drop, scatte
 __all__ = ["mttkrp_fixed_local_ref", "mttkrp_local_ref", "reduce_local"]
 
 
-def mttkrp_local_ref(factors, task_chunk, coords_rel, values, *,
-                     mode: int, chunk_shape: tuple[int, ...]) -> torch.Tensor:
+def mttkrp_local_ref(factors, task_chunk, coords_rel, values, *, mode: int,
+                     chunk_shape: tuple[int, ...], nnz_per_task=None) -> torch.Tensor:
     """(T, S_mode, R) f32 per-task partials, gather/scatter formulation.
     Factor rows are read at task_chunk·S + coords_rel, clamped to the last
-    row; local rows outside [0, S_mode) are dropped."""
+    row; local rows outside [0, S_mode) are dropped.  `nnz_per_task` is
+    ignored: the slots past it hold 0 and add nothing."""
     offsets = chunk_offsets(task_chunk, chunk_shape)
     part = values[..., None].to(torch.float32)  # (T, P, 1)
     for m, f in enumerate(factors):
@@ -34,10 +35,12 @@ def _rows(factor, offsets, coords_rel, m: int) -> torch.Tensor:
 
 def mttkrp_fixed_local_ref(qfactors, task_chunk, coords_rel, qvalues, *,
                            mode: int, chunk_shape: tuple[int, ...], matrix_frac: int,
-                           value_frac: int, prec_shift: int = 0) -> torch.Tensor:
+                           value_frac: int, prec_shift: int = 0,
+                           nnz_per_task=None) -> torch.Tensor:
     """(T, S_mode, R) int32 per-task partials, bit-exact Algorithm 2, in
     Q(·, matrix_frac - prec_shift).  Rows are gathered as in
-    `mttkrp_local_ref` (clamped), multiplied in mode order."""
+    `mttkrp_local_ref` (clamped), multiplied in mode order; `nnz_per_task`
+    is ignored as there."""
     offsets = chunk_offsets(task_chunk, chunk_shape)
     rows = [None if m == mode else _rows(f, offsets, coords_rel, m)
             for m, f in enumerate(qfactors)]

@@ -15,12 +15,14 @@ typical error well beyond that.  The fixed-point kernel (paper Alg. 2) sums
 integers, so it is held to its plain version with `torch.equal`, every
 preset, every mode.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import repro_torch as rt
-from repro_torch.kernels import mttkrp_fixed_kernel, mttkrp_kernel
+from repro_torch.kernels import mttkrp_fixed_kernel, mttkrp_kernel, tiles
 from repro_torch.kernels import ref as pref
 
 pytestmark = pytest.mark.gpu
@@ -33,6 +35,8 @@ SWEEP = [
     ((20, 12, 20, 12), 300, (8, 4, 8, 4), 32, 5),
     ((8, 8, 8, 8, 8), 200, (4, 4, 4, 4, 4), 16, 2),
     ((40, 30, 50), 600, (16, 8, 16), 32, 40),  # R > 32: lanes loop over r
+    ((30, 40), 300, (8, 16), 32, 6),  # 2 and 6 modes: the kernels' generic mode loop
+    ((6, 6, 6, 6, 6, 6), 300, (3, 3, 3, 3, 3, 3), 32, 4),
 ]
 
 
@@ -206,3 +210,181 @@ def test_fixed_kernel_wrapper_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="is on"):
         rt.mttkrp_fixed_local(qfactors, dev["task_chunk"].cpu(), dev["coords_rel"], qvalues,
                               **kw, **q)
+
+
+# ---------------------------------------------------------------------------
+# Launch tiers (kernels/tiles.py): staged, accumulator-only, global
+# ---------------------------------------------------------------------------
+
+TIER_CASES = [
+    # shape, nnz, chunk_shape, capacity, rank, the tier its shapes give
+    ((40, 30, 50), 600, (16, 8, 16), 32, 10, "staged"),
+    ((1400, 1400, 1400), 20_000, (700, 700, 700), 4096, 64, "accumulator"),
+    ((2000, 1000, 1500), 20_000, (1000, 1000, 1000), 4096, 64, "global"),
+]
+
+
+def _local_pair(kind, factors, ct, dev, mode, **kw):
+    """(kernel, plain) local blocks of one mode; float factors are padded,
+    fixed ones quantized (int7) and padded, unless kw says `padded=False`."""
+    pad = kw.pop("padded", True)
+    args = (dev["task_chunk"], dev["coords_rel"])
+    cs = ct.chunk_shape
+    if kind == "float":
+        fs = [rt.pad_factor(f, cs[m]) if pad else f for m, f in enumerate(factors)]
+        got = rt.mttkrp_local(fs, *args, dev["values"], mode=mode, chunk_shape=cs, **kw)
+        want = pref.mttkrp_local_ref(fs, *args, dev["values"], mode=mode, chunk_shape=cs)
+        terms = pref.mttkrp_local_ref([f.abs() for f in fs], *args, dev["values"].abs(),
+                                      mode=mode, chunk_shape=cs)
+        return got, want, terms
+    qfactors, qvalues, q = _fixed_inputs(factors, ct, dev, "int7")
+    fs = [rt.pad_factor(f, cs[m]) if pad else f for m, f in enumerate(qfactors)]
+    got = rt.mttkrp_fixed_local(fs, *args, qvalues, mode=mode, chunk_shape=cs, **q, **kw)
+    want = pref.mttkrp_fixed_local_ref(fs, *args, qvalues, mode=mode, chunk_shape=cs, **q)
+    return got, want, None
+
+
+def _assert_pair(kind, got, want, terms):
+    if kind == "float":
+        _assert_sum_order_close(got, want, terms)
+    else:
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def _plan(kind, ct, mode, rank, **kw):
+    fb, vb = (4, 4) if kind == "float" else (2, 2)  # int7: int16 factors, int16 qvalues
+    return tiles.plan_launch(ct.num_tasks, ct.capacity, ct.chunk_shape, mode, rank,
+                             factor_bytes=fb, value_bytes=vb, **kw)
+
+
+@pytest.mark.parametrize("kind", ["float", "fixed"])
+@pytest.mark.parametrize(("shape", "nnz", "cs", "cap", "rank", "tier"), TIER_CASES)
+def test_kernels_in_the_tier_their_shapes_give(cuda, kind, shape, nnz, cs, cap, rank, tier):
+    factors, ct, dev = _inputs(shape, nnz, cs, cap, rank, cuda)
+    for mode in range(ct.ndim):
+        assert _plan(kind, ct, mode, rank).tier == tier
+        got, want, terms = _local_pair(kind, factors, ct, dev, mode,
+                                       nnz_per_task=dev["nnz_per_task"])
+        _assert_pair(kind, got, want, terms)
+
+
+@pytest.mark.parametrize("kind", ["float", "fixed"])
+@pytest.mark.parametrize("tier", ["global", "accumulator", "staged"])
+def test_kernels_in_every_tier_forced(cuda, kind, tier):
+    factors, ct, dev = _inputs((40, 30, 50), 600, (16, 8, 16), 32, 10, cuda)
+    for mode in range(ct.ndim):
+        plan = _plan(kind, ct, mode, 10, tier=tier)
+        assert plan.tier == tier
+        got, want, terms = _local_pair(kind, factors, ct, dev, mode, plan=plan)
+        _assert_pair(kind, got, want, terms)
+
+
+@pytest.mark.parametrize("kind", ["float", "fixed"])
+@pytest.mark.parametrize("rank", [1, 3, 10, 33, 64])
+def test_kernels_every_rank(cuda, kind, rank):
+    factors, ct, dev = _inputs((40, 30, 50), 1500, (16, 8, 16), 64, rank, cuda)
+    for mode in range(ct.ndim):
+        for nnz in (None, dev["nnz_per_task"]):
+            got, want, terms = _local_pair(kind, factors, ct, dev, mode, nnz_per_task=nnz)
+            _assert_pair(kind, got, want, terms)
+
+
+@pytest.mark.parametrize("kind", ["float", "fixed"])
+def test_kernels_one_task_split_across_blocks(cuda, kind):
+    factors, ct, dev = _inputs((300, 200, 400), 400_000, (300, 200, 400), None, 10, cuda)
+    for mode in range(ct.ndim):
+        assert _plan(kind, ct, mode, 10).blocks_per_task > 1
+        for nnz in (None, dev["nnz_per_task"]):
+            got, want, terms = _local_pair(kind, factors, ct, dev, mode, nnz_per_task=nnz)
+            _assert_pair(kind, got, want, terms)
+
+
+@pytest.mark.parametrize("kind", ["float", "fixed"])
+@pytest.mark.parametrize("tier", ["global", "accumulator", "staged"])
+def test_kernels_unpadded_factors_and_out_of_chunk_coordinates(cuda, kind, tier):
+    """Factors not padded to whole chunks (the last chunk's rows clamp), and
+    input-mode coordinates past the chunk, which read the clamped global row
+    from device memory even where the block is staged."""
+    factors, ct, dev = _inputs((17, 23, 9), 200, (8, 8, 4), 16, 3, cuda)
+    coords = dev["coords_rel"].clone()
+    live = torch.arange(ct.capacity, device=cuda)[None, :] < dev["nnz_per_task"][:, None]
+    coords[..., 1] = torch.where(live & (coords[..., 1] % 3 == 0), coords[..., 1] + 9,
+                                 coords[..., 1])
+    dev = {**dev, "coords_rel": coords}
+    for mode in (0, 2):
+        plan = _plan(kind, ct, mode, 3, tier=tier)
+        got, want, terms = _local_pair(kind, factors, ct, dev, mode, padded=False, plan=plan)
+        _assert_pair(kind, got, want, terms)
+
+
+@pytest.mark.parametrize("kind", ["float", "fixed"])
+def test_kernels_write_padding_tasks_zero(cuda, kind):
+    """Padding tasks (nnz 0) get their zero block on the unfilled output."""
+    st = rt.random_tensor((40, 30, 50), 600, seed=3)
+    ct = rt.chunk_tensor(st, (16, 8, 16), 32)
+    ct = ct.pad_tasks(ct.num_tasks + 7)
+    dev = rt.chunked_device_arrays(ct, cuda)
+    rng = np.random.default_rng(4)
+    factors = [torch.from_numpy(rng.uniform(-1, 1, (d, 10)).astype(np.float32)).to(cuda)
+               for d in st.shape]
+    for mode in range(ct.ndim):
+        plan = _plan(kind, ct, mode, 10)
+        assert not plan.zero_filled
+        got, want, terms = _local_pair(kind, factors, ct, dev, mode,
+                                       nnz_per_task=dev["nnz_per_task"])
+        _assert_pair(kind, got, want, terms)
+        assert not bool(got[-7:].any())
+
+
+def test_kernel_launch_the_card_refuses_raises(cuda):
+    """A plan past the card's shared memory is refused and raises; a plan
+    that disagrees with the kernel's layout raises; the next launch works."""
+    factors, ct, dev = _inputs((2000, 1000, 1500), 20_000, (1000, 1000, 1000), 4096, 64, cuda)
+    big = _plan("float", ct, 0, 64, smem_budget=10**6)
+    assert big.tier != "global" and big.smem_bytes > tiles.device_budget(cuda)
+    before = mttkrp_kernel.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _local_pair("float", factors, ct, dev, 0, plan=big)
+    wrong = dataclasses.replace(_plan("float", ct, 0, 64, tier="global"), smem_bytes=8)
+    with pytest.raises(RuntimeError, match="disagree"):
+        _local_pair("float", factors, ct, dev, 0, plan=wrong)
+    with pytest.raises(RuntimeError, match="disagree"):  # stages the output mode's factor
+        _local_pair("float", factors, ct, dev, 0, plan=tiles.LaunchPlan("staged", 1, 0, (0,)))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _local_pair("fixed", factors, ct, dev, 0, plan=_plan("fixed", ct, 0, 64,
+                                                            smem_budget=10**6))
+    assert mttkrp_kernel.launches == before
+    got, want, terms = _local_pair("float", factors, ct, dev, 0)
+    _assert_pair("float", got, want, terms)
+
+
+@pytest.mark.parametrize("kind", ["float", "fixed"])
+def test_engines_pass_nnz_per_task(cuda, kind):
+    """The `kernel` and `fixed` engines run with the resident nnz_per_task
+    and follow the plain chunked ops on the card."""
+    st = rt.random_tensor((40, 30, 50), 1500, seed=6)
+    chunking = dict(chunk_shape=(16, 8, 16), capacity=64)
+    if kind == "float":
+        got = rt.cp_als(st, 6, n_iters=3, engine="kernel", seed=1, **chunking)
+        want = rt.cp_als(st, 6, n_iters=3, engine="chunked", seed=1, **chunking)
+        np.testing.assert_allclose(got.fit_history, want.fit_history, atol=1e-5)
+    else:
+        got = rt.cp_als(st, 6, n_iters=3, engine="fixed", fixed_preset="int15-12", seed=1,
+                        **chunking)
+        want = rt.cp_als(st, 6, n_iters=3, engine="fixed", fixed_preset="int15-12", seed=1,
+                         device="cpu", **chunking)
+        np.testing.assert_allclose(got.fit_history, want.fit_history, atol=1e-5, rtol=1e-3)
+
+
+@pytest.mark.parametrize("kind", ["float", "fixed"])
+@pytest.mark.parametrize("rank", [10, 64])
+def test_kernels_on_runs_of_equal_output_rows(cuda, kind, rank):
+    """A dense tensor: in each task's (lexicographic) slot order mode 0 and
+    mode 1 have long runs of equal output rows, which the float kernel
+    combines before its shared-memory atomics, and mode 2 has none."""
+    factors, ct, dev = _inputs((64, 64, 64), 100_000, (16, 16, 16), None, rank, cuda)
+    for mode in range(ct.ndim):
+        got, want, terms = _local_pair(kind, factors, ct, dev, mode,
+                                       nnz_per_task=dev["nnz_per_task"])
+        _assert_pair(kind, got, want, terms)
