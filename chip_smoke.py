@@ -40,10 +40,24 @@ Phases, each fatal on failure:
      bounded) on tests/test_cpals.py's planted low-rank tensor, and a
      planted rank-3 cube of side 180 (every cell present) where the fit
      means something;
+     4h. the paper's other execution roles: the `alto` and `csf` engines
+     against `ref` on the card in every mode at (a) and (c), with each
+     layout's host build time and index bytes (on (c) ALTO needs 68 key
+     bits and takes the ALTO-ordered COO baseline, and each tree's fiber
+     count is checked against `fiber_count`); cp_als on (a) through `alto`,
+     `csf` and `hetero` (every task sparse there: n_iters × 3 float-kernel
+     launches), fit and factors against the `kernel` run of phase 4; then
+     `hetero` on the planted cube under the 256 KiB plan, with the cost
+     model's split (every task dense: no launch) and with dense_fraction
+     0.5 (n_iters × 3 launches), fit against `kernel` on the same plan;
   5. time both kernels per mode at case (a) with CUDA events beside their
      plain versions, their global tier (the first design, without
      `nnz_per_task`) in turns (plain, global, kernel, kernel, global,
      plain) and their bounds, and the engines' steady iterations;
+     5h. time each role's MTTKRP per mode at case (a) in turns (ref, alto,
+     csf, plain chunked, the kernel's full op, hetero, then back), beside
+     the bytes each must move (its index bytes, the values, the factor
+     rows read and the output written), and ALTO's de-interleave alone;
   6. print the `kernels` line, then, last, the device line.
 
 Tolerance (phases 3 and 4): the float kernel forms each nonzero's product
@@ -54,6 +68,9 @@ of its terms: a float32 sum of k terms reordered moves by at most
 (∝ √k) stays far below it for the few thousand terms per entry seen here.
 The fixed kernel sums integers, so phases 3f and 4f compare exactly; card
 against CPU (4, 4f) uses the CPU tests' tolerances against the JAX package.
+Phase 4h holds `alto` and `csf` to `ref` with the same 1e-4 of Σ|terms|:
+they form the same products, CSF grouping a fiber's before the interior
+factor multiplies them, and sum them in another order.
 """
 from __future__ import annotations
 
@@ -73,6 +90,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch as rt  # noqa: E402
 from repro_torch.engine import PlanCache, default_plan_cache  # noqa: E402
+from repro_torch.core.mttkrp import _alto_decode  # noqa: E402
+from repro_torch.formats import MAX_KEY_BITS  # noqa: E402
 from repro_torch.kernels import _build, mttkrp_fixed_kernel, mttkrp_kernel, tiles  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 
@@ -102,6 +121,12 @@ F32_FLOPS = 67e12                  # H100 SXM, float32 outside the tensor cores
 I32_OPS = 132 * 64 * 1.98e9
 PLANTED_SIDE = 180                 # 5.8 M cells; side² nonzeros per output row (phase 4g)
 PLANTED_RANK = 3
+# hetero against kernel on the planted cube, fit per iteration (phase 4h).
+# Rank 5 on rank-3 data leaves two components that the data do not pin down,
+# and ALS amplifies rounding along them: on the CPU the plain `ref` and
+# `chunked` engines, which differ only in summation order, give fits up to
+# 9.1e-5 apart on this cube.  The bound is ten times that.
+PLANTED_FIT_ATOL = 1e-3
 KERNELS = {
     "float": dict(name="mttkrp_local_f32", source="src/repro_torch/kernels/csrc/mttkrp.cu",
                   replaces="src/repro/kernels/mttkrp_kernel.py:59"),
@@ -425,7 +450,7 @@ def planted_runs(label, st, **engine_kwargs) -> tuple[rt.CPResult, ...]:
     return tuple(runs)
 
 
-def planted_check() -> None:
+def planted_check() -> rt.SparseTensor:
     """Phase 4g, the paper's Fig. 6 claim on the card.
 
     (1) tests/test_cpals.py's own Fig. 6 case, (12, 10, 12) at rank 3, held
@@ -440,7 +465,7 @@ def planted_check() -> None:
     diff within 5% of float's is printed, not held: here float converges
     below int15-12's quantization floor (diff about 3e-3), a property of
     the reference's arithmetic, which the fixed MTTKRP reproduces bit for
-    bit."""
+    bit.  Returns the cube."""
     def fig6(label, f_, q15, q7, *, diff_within_5pct: bool) -> None:
         rel15 = abs(q15.diff_history[-1] - f_.diff_history[-1]) / max(f_.diff_history[-1], 1e-9)
         log(f"[4g]   {label}: int15-12's final diff is {rel15:.4f} of float's away "
@@ -472,6 +497,191 @@ def planted_check() -> None:
     if not all(r.fit_history[-1] > 0.8 and r.fit_history[-1] >= r.fit_history[0]
                for r in runs[:2]):
         fail("float or int15-12 cp_als did not converge on the planted cube")
+    return st
+
+def format_checks(label, st, device, formats) -> dict:
+    """Phase 4h per-mode checks for one case: the `alto` and `csf` engines
+    against `ref` on the card, every mode, with each layout's host build
+    time and index bytes.  Returns the three engines."""
+    ref = rt.build_engine(st, "ref", RANK)
+    bits = rt.alto_key_bits(st.shape)
+    t0 = time.perf_counter()
+    alto = rt.build_engine(st, "alto", RANK, formats=formats)
+    t_alto = time.perf_counter() - t0
+    stats = rt.FormatStats.estimate(st.shape, st.nnz)
+    if bits > MAX_KEY_BITS:
+        if formats.stats.alto_misses:
+            fail(f"case {label}: an ALTO layout was built for a {bits}-bit key")
+        log(f"[4h] {label}: alto_key_bits={bits} > {MAX_KEY_BITS}: the alto engine took the "
+            f"ALTO-ordered COO baseline (alto_order + upload {t_alto:.1f}s; COO index bytes "
+            f"{int(stats.coo_index_bytes())})")
+    else:
+        at = formats.alto(st)
+        log(f"[4h] {label}: ALTO layout built and moved in {t_alto:.1f}s: key_bits={bits} "
+            f"words={at.n_words} index_bytes={at.index_bytes} (COO {int(stats.coo_index_bytes())})")
+    csf = rt.build_engine(st, "csf", RANK, formats=formats)
+    for mode in range(st.ndim):
+        t0 = time.perf_counter()
+        tree = formats.csf(st, mode)
+        t_tree = time.perf_counter() - t0
+        log(f"[4h] {label}: CSF tree mode {mode} (inner mode {tree.inner_mode}) built in "
+            f"{t_tree:.1f}s: n_fibers={tree.n_fibers} nonzeros per fiber="
+            f"{st.nnz / max(tree.n_fibers, 1):.3f} index_bytes={tree.index_bytes} "
+            f"(balls-in-bins estimate {stats.fiber_counts[mode]} fibers)")
+    factors = rt.init_factors(st.shape, RANK, seed=0, device=device)
+    abs_factors = [f.abs() for f in factors]
+    coords = torch.from_numpy(st.coords).to(device)
+    abs_values = torch.from_numpy(np.abs(st.values)).to(device)
+    for mode in range(st.ndim):
+        want = ref(factors, mode)
+        terms = rt.mttkrp_coo(abs_factors, coords, abs_values, mode=mode, out_dim=st.shape[mode])
+        for name, eng in (("alto", alto), ("csf", csf)):
+            got = eng(factors, mode)
+            torch.cuda.synchronize()
+            err, bad = sum_order_error(got, want, terms)
+            finite = bool(torch.isfinite(got).all())
+            log(f"[4h]   {label} mode {mode} {name} vs ref: max|err|={err:.3e} outside={bad}")
+            if bad or not finite or tuple(got.shape) != tuple(want.shape):
+                fail(f"case {label} mode {mode}: the {name} engine disagrees with ref")
+        del want, terms, got
+    return dict(ref=ref, alto=alto, csf=csf)
+
+
+def format_main_runs(st, plan, engines, kernel_run) -> int:
+    """Phase 4h at case (a): cp_als through `alto`, `csf` and `hetero`, each
+    with its launches counted from 0, fit and factors against the `kernel`
+    run of phase 4.  Returns hetero's float-kernel launches."""
+    split = rt.split_tasks(default_plan_cache.chunked(st, plan.chunk_shape, plan.capacity), RANK)
+    log(f"[4h] hetero split at (a): dense tasks={split.dense_idx.size} sparse tasks="
+        f"{split.sparse_idx.size} (chunk volume {math.prod(plan.chunk_shape)} > "
+        f"MAX_DENSE_VOLUME {rt.MAX_DENSE_VOLUME}: every task sparse)")
+    if split.dense_idx.size:
+        fail("hetero at (a): a chunk past MAX_DENSE_VOLUME went dense")
+    hetero_launches = 0
+    for name in ("alto", "csf", "hetero"):
+        mttkrp_kernel.launches = 0
+        mttkrp_fixed_kernel.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = rt.cp_als(st, RANK, n_iters=N_ITERS, engine=engines[name], seed=0)
+        t_run = time.perf_counter() - t0
+        launches, fixed_launches = mttkrp_kernel.launches, mttkrp_fixed_kernel.launches
+        want = N_ITERS * st.ndim if name == "hetero" else 0
+        fit_gap = max(abs(a - b) for a, b in zip(res.fit_history, kernel_run.fit_history,
+                                                 strict=True))
+        factor_gap = max(float((a - b).abs().max())
+                         for a, b in zip(res.factors, kernel_run.factors, strict=True))
+        log(f"[4h] cp_als engine={res.engine} at (a) in {t_run:.1f}s: float kernel launches="
+            f"{launches} (expected {want}), fixed kernel launches={fixed_launches}")
+        log(f"[4h]   fit_history={res.fit_history} |fit - fit kernel| max={fit_gap:.3e} "
+            f"(tolerance {FIT_ATOL}); max |factor - factor kernel|={factor_gap:.3e} "
+            f"(tolerance {FACTOR_ATOL})")
+        log(f"[4h]   iter_times={res.iter_times} steady={steady(res.iter_times):.3f} ms; device "
+            f"memory resident before {base_bytes / 2**30:.3f} GiB, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if launches != want or fixed_launches != 0:
+            fail(f"{name} at (a) launched the float kernel {launches} times (expected {want}) "
+                 f"and the fixed one {fixed_launches} times (expected 0)")
+        if not all(math.isfinite(v) for v in res.fit_history) or fit_gap > FIT_ATOL \
+                or factor_gap > FACTOR_ATOL:
+            fail(f"cp_als through {name} at (a) left the kernel run")
+        if name == "hetero":
+            hetero_launches = launches
+    return hetero_launches
+
+
+def planted_hetero(st) -> int:
+    """Phase 4h on the planted cube of phase 4g under the 256 KiB plan:
+    cp_als at rank 5 through `hetero` with the cost model's split (every
+    task dense: no kernel launch) and with dense_fraction 0.5 (the sparse
+    half: n_iters × 3 launches), fit against `kernel` on the same plan.
+    Returns the launches of both runs."""
+    plan = rt.decide_partition(st, 5, mem_bytes=EXAMPLE_MEM, rank_axis=5)
+    chunking = dict(chunk_shape=plan.chunk_shape, capacity=plan.capacity)
+    ct = default_plan_cache.chunked(st, plan.chunk_shape, plan.capacity)
+    density = ct.nnz_per_task / math.prod(ct.chunk_shape)
+    kern = rt.cp_als(st, 5, n_iters=N_ITERS, engine="kernel", seed=5, **chunking)
+    log(f"[4h] cube {PLANTED_SIDE}, 256 KiB plan: chunk={ct.chunk_shape} T={ct.num_tasks} "
+        f"density {density.min():.3f}-{density.max():.3f}; kernel fit={kern.fit_history} "
+        f"steady={steady(kern.iter_times):.3f} ms")
+    total = 0
+    for fraction in (None, 0.5):
+        split = rt.split_tasks(ct, 5, dense_fraction=fraction)
+        mttkrp_kernel.launches = 0
+        mttkrp_fixed_kernel.launches = 0
+        res = rt.cp_als(st, 5, n_iters=N_ITERS, engine="hetero", seed=5,
+                        dense_fraction=fraction, **chunking)
+        launches, fixed_launches = mttkrp_kernel.launches, mttkrp_fixed_kernel.launches
+        want = N_ITERS * st.ndim if split.sparse_idx.size else 0
+        gap = max(abs(a - b) for a, b in zip(res.fit_history, kern.fit_history, strict=True))
+        log(f"[4h]   hetero dense_fraction={fraction}: dense tasks={split.dense_idx.size} "
+            f"sparse tasks={split.sparse_idx.size}; float kernel launches={launches} (expected "
+            f"{want}); fit={res.fit_history} max |fit - fit kernel|={gap:.3e} (tolerance "
+            f"{PLANTED_FIT_ATOL}); steady={steady(res.iter_times):.3f} ms")
+        split_ok = (split.sparse_idx.size == 0 if fraction is None
+                    else split.dense_idx.size and split.sparse_idx.size)
+        if not split_ok:
+            fail(f"cube: the hetero split for dense_fraction={fraction} is not the one expected")
+        if launches != want or fixed_launches or gap > PLANTED_FIT_ATOL:
+            fail(f"cube: hetero with dense_fraction={fraction} launched the float kernel "
+                 f"{launches} times (expected {want}) and the fixed one {fixed_launches} times, "
+                 f"or left kernel's fit")
+        total += launches
+    return total
+
+
+def path_bytes(st, mode: int, index_bytes: float) -> float:
+    """Bytes one MTTKRP must move: its index structure and the values read
+    once, every input factor read once and the output written once."""
+    return (index_bytes + 4 * st.nnz
+            + sum(st.shape[m] * RANK * 4 for m in range(st.ndim) if m != mode)
+            + st.shape[mode] * RANK * 4)
+
+
+def time_roles(st, ct, dev, engines, formats, device) -> None:
+    """Phase 5h: each execution role's MTTKRP per mode at case (a), timed in
+    turns (each path once forward and once back), beside the bytes it must
+    move and their bound; and ALTO's de-interleave of all modes alone."""
+    trees = [formats.csf(st, m) for m in range(st.ndim)]
+    stats = rt.FormatStats(shape=st.shape, nnz=st.nnz,
+                           fiber_counts=tuple(t.n_fibers for t in trees),
+                           key_bits=rt.alto_key_bits(st.shape),
+                           key_words=formats.alto(st).n_words)
+    factors = rt.init_factors(st.shape, RANK, seed=0, device=device)
+    cs = ct.chunk_shape
+    tc, cr, vals, nnz = dev["task_chunk"], dev["coords_rel"], dev["values"], dev["nnz_per_task"]
+    key_words = formats.device_alto(st, device)["key_words"]
+    words = [key_words[:, w].contiguous() for w in range(key_words.shape[1])]
+    positions = formats.alto(st).positions
+    paths = {
+        "ref": engines["ref"], "alto": engines["alto"], "csf": engines["csf"],
+        "chunked": lambda f, mode: rt.mttkrp_chunked(f, tc, cr, vals, mode=mode, chunk_shape=cs,
+                                                     out_dim=st.shape[mode]),
+        "kernel_op": lambda f, mode: rt.mttkrp_kernel_op(f, tc, cr, vals, mode=mode,
+                                                         chunk_shape=cs, out_dim=st.shape[mode],
+                                                         nnz_per_task=nnz),
+        "hetero": engines["hetero"],
+        # ALTO's de-interleave of every mode alone, to split its time
+        "alto_decode": lambda f, mode: [_alto_decode(words, p) for p in positions],
+    }
+    reps = dict(ref=3, alto=3, csf=3, chunked=3, kernel_op=10, hetero=10, alto_decode=3)
+    for mode in range(st.ndim):
+        runs = {name: [] for name in paths}
+        for name in [*paths, *reversed(paths)]:
+            runs[name].append(time_ms(lambda name=name, mode=mode: paths[name](factors, mode),
+                                      reps[name]))
+        index = dict(ref=stats.coo_index_bytes(), alto=stats.alto_index_bytes(),
+                     csf=stats.csf_index_bytes(mode), chunked=stats.coo_index_bytes(),
+                     kernel_op=stats.coo_index_bytes(), hetero=stats.coo_index_bytes())
+        row = {}
+        for name, times in runs.items():
+            # the decode reads the key words once and writes N coordinate columns
+            nbytes = (stats.alto_index_bytes() + stats.coo_index_bytes() if name == "alto_decode"
+                      else path_bytes(st, mode, index[name]))
+            row[name] = dict(ms=float(np.mean(times)), runs=times, bytes=nbytes,
+                             bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+        log(f"[5h] mode {mode}: " + json.dumps(row))
 
 
 def main() -> int:
@@ -583,7 +793,8 @@ def main() -> int:
     log(f"[4]   max |factor kernel - factor plain| = {factor_gap:.3e} (tolerance {FACTOR_ATOL})")
     if factor_gap > FACTOR_ATOL:
         fail("the kernel engine's factors left the plain engine's")
-    del plain, res
+    kernel_run = res
+    del plain
     # A small input whose fit stands far above the residual's float32
     # resolution: the kernel engine on the card against the plain engine on
     # the CPU, which the CPU tests hold against the JAX package.
@@ -622,12 +833,33 @@ def main() -> int:
             f"{FIXED_SMALL_RTOL}·|cpu|, quant_error {QUANT_RTOL} relative)")
         if not ok:
             fail(f"the fixed engine on the card left the CPU path on TABLE1 {name}")
-    del st_c, ct_c, dev_c  # (c)'s cache entries go with st_c
+    del ct_c, dev_c
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
     # 4g. Planted low-rank cube: the paper's Fig. 6 claim on the card.
-    planted_check()
+    cube = planted_check()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # 4h. The paper's other roles: ALTO, CSF and the hetero split.
+    engines_c = format_checks("c (LBNL)", st_c, device, rt.FormatCache())
+    for mode in range(st_c.ndim):
+        tree = engines_c["csf"].context.formats.csf(st_c, mode)
+        counted = rt.fiber_count(st_c, mode)
+        log(f"[4h] c (LBNL) mode {mode}: fiber_count={counted} tree n_fibers={tree.n_fibers}")
+        if counted != tree.n_fibers:
+            fail(f"case c mode {mode}: fiber_count disagrees with the built tree")
+    del st_c, engines_c  # (c)'s cache entries go with st_c
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    formats_a = rt.FormatCache()
+    engines = format_checks("a (NELL-2)", st_a, device, formats_a)
+    engines["hetero"] = rt.build_engine(st_a, "hetero", RANK, chunk_shape=plan_a.chunk_shape,
+                                        capacity=plan_a.capacity)
+    hetero_launches = format_main_runs(st_a, plan_a, engines, kernel_run)
+    hetero_launches += planted_hetero(cube)
+    del cube
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -697,6 +929,9 @@ def main() -> int:
              f"tier (the first design) in every mode")
     log(f"[5f] steady cp_als iteration at (a): fixed int7 {steady(fixed_iter_times):.3f} ms, "
         f"float kernel {steady(float_iter_times):.3f} ms")
+
+    # 5h. The execution roles' MTTKRP per mode at case (a), in turns.
+    time_roles(st_a, ct_a, dev_a, engines, formats_a, device)
     smi_after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -707,7 +942,8 @@ def main() -> int:
 
     # 6. Kernels line (ms/plain_ms/bound_ms: the 3 launches of one CP-ALS
     # iteration at case (a)'s shapes, summed over the modes; launches: the
-    # main path's runs, the fixed kernel's over both of its runs).
+    # main paths' runs, the float kernel's through `kernel` and `hetero`, the
+    # fixed kernel's over both of its runs).
     def entry(kind, rows, n_launches, err):
         return {**KERNELS[kind], "route": "cuda", "launches": n_launches, "max_abs_err": err,
                 "ms": sum(r["ms"] for r in rows),
@@ -716,7 +952,7 @@ def main() -> int:
                 "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
                              else "operations"),
                 "library_ms": None}
-    print(json.dumps({"kernels": [entry("float", modes, launches, worst),
+    print(json.dumps({"kernels": [entry("float", modes, launches + hetero_launches, worst),
                                   entry("fixed", fixed_modes, fixed_launches,
                                         float(worst_fixed))]}), flush=True)
     # 7. Device line, last.

@@ -1,17 +1,28 @@
 """PRISM core in PyTorch: the chunked sparse tensor format, the partition
-decider, float and fixed-point spMTTKRP, the Qm.n formats, lock-free
-emulation and CP-ALS."""
+decider, float and fixed-point spMTTKRP, the CSF/ALTO ops and baselines,
+the Qm.n formats, lock-free emulation, heterogeneous execution and CP-ALS."""
+from .baselines import alto_order
 from .chunking import ChunkedTensor, chunk_tensor, clamp_capacity, replication_stats
 from .cpals import CPResult, avg_abs_diff, cp_als, fit_value, init_factors, reconstruct_nnz
+from .hetero import (
+    MAX_DENSE_VOLUME,
+    HeteroSplit,
+    densify_tasks,
+    hetero_device_arrays,
+    mttkrp_hetero,
+    split_tasks,
+)
 from .lockfree import wave_collision_mask
 from .mttkrp import (
     chunked_device_arrays,
     dequantize_output,
     gather_factor_blocks,
+    mttkrp_alto,
     mttkrp_chunked,
     mttkrp_chunked_fixed,
     mttkrp_coo,
     mttkrp_coo_fixed,
+    mttkrp_csf,
 )
 from .partition import PartitionPlan, decide_partition
 from .qformat import (
@@ -31,16 +42,19 @@ from .sptensor import TABLE1, SparseTensor, random_tensor, table1_tensor
 __all__ = [
     "CROSS_MODE_SLACK",
     "FIXED_PRESETS",
+    "MAX_DENSE_VOLUME",
+    "Q17_15",
     "Q5_3",
     "Q9_7",
-    "Q17_15",
     "TABLE1",
     "CPResult",
     "ChunkedTensor",
+    "HeteroSplit",
     "PartitionPlan",
     "QFormat",
     "SparseTensor",
     "accumulator_safe_nnz",
+    "alto_order",
     "avg_abs_diff",
     "chunk_tensor",
     "chunked_device_arrays",
@@ -48,18 +62,24 @@ __all__ = [
     "cp_als",
     "cross_mode_error_bound",
     "decide_partition",
+    "densify_tasks",
     "dequantize_output",
     "fit_value",
     "gather_factor_blocks",
+    "hetero_device_arrays",
     "init_factors",
+    "mttkrp_alto",
     "mttkrp_chunked",
     "mttkrp_chunked_fixed",
     "mttkrp_coo",
     "mttkrp_coo_fixed",
+    "mttkrp_csf",
+    "mttkrp_hetero",
     "preset_error_bound",
     "random_tensor",
     "reconstruct_nnz",
     "replication_stats",
+    "split_tasks",
     "table1_tensor",
     "value_qformat",
     "wave_collision_mask",

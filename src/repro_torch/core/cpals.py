@@ -4,9 +4,9 @@
 Everything except MTTKRP — Gram matrices, Hadamard products, the
 pseudo-inverse solve, normalization, the fit — is dense float32 work on the
 engine's device.  The engine is any backend name registered in
-`repro_torch.engine` (`ref`, `chunked`, `kernel`, `fixed`) or preset id
-(`"fixed:int15-12"`), an `Engine` from `build_engine`, or a callable
-``f(factors, mode) -> (I_mode, R)``.
+`repro_torch.engine` (`ref`, `alto`, `csf`, `chunked`, `kernel`, `fixed`,
+`hetero`) or preset id (`"fixed:int15-12"`), an `Engine` from
+`build_engine`, or a callable ``f(factors, mode) -> (I_mode, R)``.
 
 Normalization is L-infinity by default (paper §IV-C); L2 is available.
 """
@@ -179,8 +179,8 @@ def cp_als(
     `device` None means the CUDA card (and raises where there is none);
     a prebuilt engine brings its own.  `engine_kwargs` are `build_engine`
     options (mem_bytes, chunk_shape, capacity, fixed_preset, lockfree_mode,
-    plans); the reference's tuning keywords raise `NotImplementedError`
-    (ROADMAP Queue 1 item 8).
+    dense_fraction, plans, formats); the reference's tuning keywords raise
+    `NotImplementedError` (ROADMAP Queue 1 item 8).
 
     Each iteration ends in one device synchronisation, so `iter_times` holds
     finished work, and the fit adds one host readout.  A lossy engine

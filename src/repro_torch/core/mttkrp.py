@@ -1,7 +1,7 @@
-"""spMTTKRP in plain PyTorch: the COO reference and the chunked (PRISM)
-formulation, float and fixed point (paper Alg. 2).  Counterpart of the
-float and fixed halves of `repro.core.mttkrp`, with the same index
-semantics:
+"""spMTTKRP in plain PyTorch: the COO reference, the chunked (PRISM)
+formulation, float and fixed point (paper Alg. 2), and the ops over the
+CSF and ALTO layouts (`repro_torch.formats`).  Counterpart of
+`repro.core.mttkrp`, with the same index semantics:
 
   * gathers of factor blocks clamp to the last row (`gather_factor_blocks`);
   * scatters drop out-of-range rows, as `.at[].add(mode="drop")` does,
@@ -26,10 +26,12 @@ __all__ = [
     "dequantize_output",
     "gather_factor_blocks",
     "index_add_drop",
+    "mttkrp_alto",
     "mttkrp_chunked",
     "mttkrp_chunked_fixed",
     "mttkrp_coo",
     "mttkrp_coo_fixed",
+    "mttkrp_csf",
     "scatter_local",
 ]
 
@@ -133,6 +135,64 @@ def _sum_partials(part, offsets, coords_rel, mode: int, chunk_shape, out_dim: in
     rows = offsets[:, mode : mode + 1] + torch.arange(
         s_out, dtype=torch.int32, device=offsets.device)
     return index_add_drop(out_dim, rows.reshape(-1), local.reshape(-1, part.shape[-1]))
+
+
+# ---------------------------------------------------------------------------
+# Format-subsystem ops (repro_torch.formats): CSF fiber trees and the ALTO
+# linearized index.  Both are exact float paths — they change the memory
+# access structure, not the arithmetic.  The reference's `segment_sum`
+# becomes `index_add_` into a zero (num_segments, R) tensor.
+# ---------------------------------------------------------------------------
+
+def mttkrp_csf(factors, inner_coord, values, fiber_ids, fiber_coords, *, mode: int,
+               inner_mode: int, mid_modes: tuple[int, ...], out_dim: int,
+               n_fibers: int) -> torch.Tensor:
+    """spMTTKRP over a CSF mode tree (see `repro_torch.formats.csf`): two
+    reductions over sorted indices, nonzeros → fibers → output rows.
+
+    The interior (mid) factor rows are gathered once per *fiber* instead of
+    once per nonzero — the fiber-reuse win CSF exists for; only the innermost
+    factor is gathered per nonzero.
+
+    inner_coord (nnz,), values (nnz,), fiber_ids (nnz, sorted),
+    fiber_coords (n_fibers, N; inner column unused).  Returns (out_dim, R).
+    """
+    part = values[:, None].to(torch.float32) * factors[inner_mode].index_select(0, inner_coord)
+    fib = torch.zeros((n_fibers, part.shape[1]), dtype=torch.float32, device=part.device)
+    fib.index_add_(0, fiber_ids, part)  # fiber ids are the tree's own, all in range
+    del part
+    for m in mid_modes:
+        fib = fib * factors[m].index_select(0, fiber_coords[:, m])
+    return index_add_drop(out_dim, fiber_coords[:, mode], fib)
+
+
+def _alto_decode(words, positions: tuple[int, ...]) -> torch.Tensor:
+    """Gather one mode's coordinate bits back out of the packed key:
+    `positions[b]` is the key bit holding coordinate bit `b`, in word
+    `words[p // 32]` (int32 views of the uint32 words: bit `b` is moved
+    into place by one shift and masked, so the sign fill of an arithmetic
+    shift never reaches it)."""
+    c = torch.zeros(words[0].shape[0], dtype=torch.int32, device=words[0].device)
+    for b, p in enumerate(positions):
+        s = p % 32 - b
+        w = words[p // 32]
+        c |= (w >> s if s >= 0 else w << -s) & (1 << b)
+    return c
+
+
+def mttkrp_alto(factors, key_words, values, *, mode: int,
+                positions: tuple[tuple[int, ...], ...], out_dim: int) -> torch.Tensor:
+    """spMTTKRP over the ALTO linearized index (see `repro_torch.formats.alto`):
+    every mode's coordinates are de-interleaved from ONE key stream
+    (`key_words`, (nnz, W) int32 — the layout's uint32 words reinterpreted,
+    sorted by key), so a single tensor copy serves all modes."""
+    # Each word column is made contiguous once, not read strided per bit.
+    words = [key_words[:, w].contiguous() for w in range(key_words.shape[1])]
+    part = values[:, None].to(torch.float32)
+    for m, f in enumerate(factors):
+        if m != mode:
+            part = part * f.index_select(0, _alto_decode(words, positions[m]))
+    return index_add_drop(out_dim, _alto_decode(words, positions[mode]), part)
 
 
 # ---------------------------------------------------------------------------

@@ -3,6 +3,8 @@
     from repro_torch.engine import build_engine
     eng = build_engine(st, "kernel", rank=10)                # on the CUDA card
     eng = build_engine(st, "fixed:int15-12", rank=10)        # paper Alg. 2, pinned preset
+    eng = build_engine(st, "alto", rank=10)                  # ALTO layout (the paper's CPU role)
+    eng = build_engine(st, "hetero", rank=10, dense_fraction=0.5)  # paper §IV-D split
     eng = build_engine(st, "chunked", rank=10, device="cpu")
     out = eng(factors, mode)                                 # (I_mode, R) f32
 
@@ -81,7 +83,8 @@ def validate_engine_kwargs(caller: str, options: dict, *, extra: tuple[str, ...]
     """Raise `NotImplementedError` for the reference's tuning keywords and a
     `TypeError` naming the nearest valid spelling for unknown ones.  Valid
     keywords are the `EngineContext` fields: mem_bytes, chunk_shape,
-    capacity, fixed_preset, lockfree_mode, device, plans."""
+    capacity, fixed_preset, lockfree_mode, device, dense_fraction, plans,
+    formats."""
     tuning = sorted(set(options) & set(TUNING_KEYWORDS))
     if tuning:
         raise _not_ported(f"{caller}: the tuning keyword(s) {tuning}")
@@ -94,8 +97,8 @@ def validate_engine_kwargs(caller: str, options: dict, *, extra: tuple[str, ...]
 def build_engine(st, method: str | Callable = "auto", rank: int = 10, **options) -> Engine:
     """Build an MTTKRP engine through the registry.
 
-    method  — a registered backend name (`ref`, `chunked`, `kernel`,
-              `fixed`), a preset id (``"fixed:int7"`` pins that Qm.n
+    method  — a registered backend name (`ref`, `alto`, `csf`, `chunked`,
+              `kernel`, `fixed`, `hetero`), a preset id (``"fixed:int7"`` pins that Qm.n
               preset) or a callable ``f(factors, mode)``, wrapped
               unchanged.  `"auto"` raises `NotImplementedError` (ROADMAP
               Queue 1 item 8).
@@ -104,7 +107,10 @@ def build_engine(st, method: str | Callable = "auto", rank: int = 10, **options)
               "int7"; a different one than the method pins raises),
               lockfree_mode (emulate the paper's lock-free lost updates in
               `chunked` and `fixed`), device (None → the CUDA card, raising
-              where there is none), plans (a PlanCache; default the
+              where there is none), dense_fraction (`hetero`: a static
+              densest-first fraction of dense tasks in place of the cost
+              model's split), plans (a PlanCache; default the process-wide
+              one), formats (a FormatCache for `csf`/`alto`; default the
               process-wide one).
     """
     validate_engine_kwargs("build_engine", options)

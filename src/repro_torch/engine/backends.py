@@ -1,6 +1,11 @@
 """The built-in execution strategies, as registry backends:
 
   ref      plain COO scatter (paper Fig. 1)
+  alto     ALTO linearized format: one bit-interleaved index serving every
+           mode, de-interleaved at call time (the "CPU" role); past 64 key
+           bits the ALTO-ordered COO baseline
+  csf      CSF fiber trees (`repro_torch.formats.csf`): per-mode trees with
+           fiber-level factor reuse
   chunked  PRISM chunked format, plain PyTorch (the "PIM" role)
   kernel   PRISM chunked format through the hand-written CUDA kernel
            (counterpart of the reference's `pallas`); on a CPU device the
@@ -8,6 +13,8 @@
   fixed    PRISM chunked format + paper Alg. 2 fixed point (presets int3,
            int7, int15-12) through the hand-written fixed-point CUDA
            kernel; on a CPU device the kernel wrapper takes its plain version
+  hetero   dense/sparse split of the chunk tasks (paper §IV-D): dense tasks
+           by one float32 einsum, sparse ones through the float CUDA kernel
 
 `lockfree_mode` (the paper's lock-free lost updates, emulated by
 `core.lockfree.wave_collision_mask`) is read by `chunked` and `fixed`, as
@@ -16,14 +23,16 @@ and `pallas` do.
 
 Chunk-based builders pull their ChunkedTensor and device tensors from the
 context's PlanCache, so several backends built against one tensor chunk it
-once and move it to the card once.
+once and move it to the card once; the format-based builders (`csf`,
+`alto`) likewise pull their layouts from the context's FormatCache.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core import lockfree, mttkrp
+from ..core import baselines, hetero, lockfree, mttkrp
 from ..core.qformat import FIXED_PRESETS, value_qformat
+from ..formats.alto import MAX_KEY_BITS, alto_key_bits
 from ..kernels import ops as kops
 from .registry import EngineContext, register_backend
 
@@ -43,6 +52,51 @@ def _build_ref(ctx: EngineContext):
 
     def engine(factors, mode):
         return mttkrp.mttkrp_coo(factors, coords, values, mode=mode, out_dim=shape[mode])
+    return engine
+
+
+@register_backend(
+    "alto",
+    description="ALTO linearized index: one bit-interleaved copy serves all modes (CPU role)")
+def _build_alto(ctx: EngineContext):
+    shape = ctx.st.shape
+    if alto_key_bits(shape) > MAX_KEY_BITS:
+        # The packed linearization caps at 64 key bits (BLCO block splitting
+        # is the ROADMAP lift); beyond it, take the ALTO-*ordered* COO
+        # baseline — same traversal order, explicit coordinates.
+        order = baselines.alto_order(ctx.st.coords, shape)
+        a_coords = torch.from_numpy(ctx.st.coords[order]).to(ctx.device)
+        a_values = torch.from_numpy(ctx.st.values[order]).to(ctx.device)
+
+        def engine(factors, mode):
+            return baselines.mttkrp_alto(factors, a_coords, a_values, mode=mode,
+                                         out_dim=shape[mode])
+        return engine
+
+    positions = ctx.formats.alto(ctx.st).positions
+    dev = ctx.formats.device_alto(ctx.st, ctx.device)
+
+    def engine(factors, mode):
+        return mttkrp.mttkrp_alto(factors, dev["key_words"], dev["values"], mode=mode,
+                                  positions=positions, out_dim=shape[mode])
+    return engine
+
+
+@register_backend(
+    "csf",
+    description="CSF fiber trees: interior factor rows fetched once per fiber")
+def _build_csf(ctx: EngineContext):
+    st, formats, device = ctx.st, ctx.formats, ctx.device
+
+    def engine(factors, mode):
+        # Trees build lazily per mode and come from the FormatCache, so
+        # CP-ALS and repeated builds construct each tree exactly once.
+        tree = formats.csf(st, mode)
+        dev = formats.device_csf(st, mode, device)
+        return mttkrp.mttkrp_csf(
+            factors, dev["inner_coord"], dev["values"], dev["fiber_ids"], dev["fiber_coords"],
+            mode=mode, inner_mode=tree.inner_mode, mid_modes=tree.mid_modes,
+            out_dim=st.shape[mode], n_fibers=tree.n_fibers)
     return engine
 
 
@@ -102,4 +156,19 @@ def _build_fixed(ctx: EngineContext):
             matrix_frac=qf.frac_bits, value_frac=vq.frac_bits, prec_shift=prec_shift,
             nnz_per_task=dev["nnz_per_task"])
         return mttkrp.dequantize_output(qout, qf.frac_bits, prec_shift)
+    return engine
+
+
+@register_backend("hetero", needs_chunking=True,
+                  description="dense (einsum)/sparse (CUDA kernel) split of the chunk tasks, "
+                              "cost-model scheduled (paper §IV-D)")
+def _build_hetero(ctx: EngineContext):
+    ct = ctx.chunked()
+    split = hetero.split_tasks(ct, ctx.rank, dense_fraction=ctx.dense_fraction)
+    arrays = hetero.hetero_device_arrays(ct, split, ctx.device_arrays())
+    cs, shape = ct.chunk_shape, ctx.st.shape
+
+    def engine(factors, mode):
+        return hetero.mttkrp_hetero(factors, arrays, mode=mode, chunk_shape=cs,
+                                    out_dim=shape[mode])
     return engine

@@ -15,6 +15,7 @@ import torch
 from ..core.chunking import ChunkedTensor
 from ..core.sptensor import SparseTensor
 from ..device import resolve_device
+from ..formats.convert import FormatCache, default_format_cache
 from .plan import PlanCache, default_plan_cache
 
 __all__ = [
@@ -150,6 +151,9 @@ class EngineContext:
     `fixed_preset` names the `fixed` backend's Qm.n preset
     (`FIXED_PRESETS`); `lockfree_mode` emulates the paper's lock-free lost
     updates in the backends that read it (`chunked`, `fixed`).
+    `dense_fraction` overrides the `hetero` backend's cost-model split with a
+    static densest-first fraction of tasks; the `csf` and `alto` backends
+    take their layouts from `formats`.
     """
 
     st: SparseTensor
@@ -160,11 +164,15 @@ class EngineContext:
     fixed_preset: str = "int7"
     lockfree_mode: bool = False
     device: torch.device | str | None = None
+    dense_fraction: float | None = None
     plans: PlanCache | None = None  # None → the process-wide default_plan_cache
+    formats: FormatCache | None = None  # None → the process-wide default_format_cache
 
     def __post_init__(self):
         if self.plans is None:
             self.plans = default_plan_cache
+        if self.formats is None:
+            self.formats = default_format_cache
         if self.capacity is not None and self.capacity < 1:
             raise ValueError(
                 f"capacity must be >= 1 nonzero slot per chunk task (got "
