@@ -58,6 +58,22 @@ Phases, each fatal on failure:
      csf, plain chunked, the kernel's full op, hetero, then back), beside
      the bytes each must move (its index bytes, the values, the factor
      rows read and the output written), and ALTO's de-interleave alone;
+     4a. the autotuner (`engine="auto"`), after 5h so that the roles'
+     timings stay undisturbed, reusing 5h's layouts; every store lives in a
+     fresh temporary directory, and every tune fails the run if it skips a
+     candidate for any reason but the prior's pruning or an accuracy
+     budget: the README's quickstart
+     `cp_als(table1_tensor("nell2"), 10, n_iters=5, engine="auto")` against
+     a `kernel` run; a cold tune at (a) (no lossless candidate skipped,
+     every mode won by `kernel` or `hetero`, the two backends that launch
+     the float kernel), then cp_als through it (n_iters × 3 float-kernel
+     launches, fit and factors against phase 4's `kernel` run); a warm hit
+     (0 probes, the same winners); the analytic prior's pruning with
+     max_probes=3 (printed, not held); the six TABLE1 tensors tuned into
+     one store, the calibrated prior fitted to it and a cold calibrated,
+     elided tune at (a) (every winner a float-kernel backend); and an
+     accuracy budget of 1e-2 over kernel, fixed:int7 and fixed:int15-12
+     (int7 rejected over budget, the fixed kernel launched by the probes);
   6. print the `kernels` line, then, last, the device line.
 
 Tolerance (phases 3 and 4): the float kernel forms each nonzero's product
@@ -77,8 +93,10 @@ from __future__ import annotations
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -91,6 +109,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import repro_torch as rt  # noqa: E402
 from repro_torch.engine import PlanCache, default_plan_cache  # noqa: E402
 from repro_torch.core.mttkrp import _alto_decode  # noqa: E402
+from repro_torch.engine.calibrate import MIN_OBSERVATIONS  # noqa: E402
 from repro_torch.formats import MAX_KEY_BITS  # noqa: E402
 from repro_torch.kernels import _build, mttkrp_fixed_kernel, mttkrp_kernel, tiles  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
@@ -639,10 +658,11 @@ def path_bytes(st, mode: int, index_bytes: float) -> float:
             + st.shape[mode] * RANK * 4)
 
 
-def time_roles(st, ct, dev, engines, formats, device) -> None:
+def time_roles(st, ct, dev, engines, formats, device) -> dict:
     """Phase 5h: each execution role's MTTKRP per mode at case (a), timed in
     turns (each path once forward and once back), beside the bytes it must
-    move and their bound; and ALTO's de-interleave of all modes alone."""
+    move and their bound; and ALTO's de-interleave of all modes alone.
+    Returns each path's mean ms per mode."""
     trees = [formats.csf(st, m) for m in range(st.ndim)]
     stats = rt.FormatStats(shape=st.shape, nnz=st.nnz,
                            fiber_counts=tuple(t.n_fibers for t in trees),
@@ -666,6 +686,7 @@ def time_roles(st, ct, dev, engines, formats, device) -> None:
         "alto_decode": lambda f, mode: [_alto_decode(words, p) for p in positions],
     }
     reps = dict(ref=3, alto=3, csf=3, chunked=3, kernel_op=10, hetero=10, alto_decode=3)
+    mean_ms = {name: [] for name in paths}
     for mode in range(st.ndim):
         runs = {name: [] for name in paths}
         for name in [*paths, *reversed(paths)]:
@@ -681,7 +702,202 @@ def time_roles(st, ct, dev, engines, formats, device) -> None:
                       else path_bytes(st, mode, index[name]))
             row[name] = dict(ms=float(np.mean(times)), runs=times, bytes=nbytes,
                              bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+            mean_ms[name].append(row[name]["ms"])
         log(f"[5h] mode {mode}: " + json.dumps(row))
+    return mean_ms
+
+
+FLOAT_KERNEL_BACKENDS = ("kernel", "hetero")   # the auto candidates that launch the float kernel
+LOSSLESS = ("ref", "alto", "csf", "chunked", "kernel", "hetero")
+ROLE_OF = dict(ref="ref", alto="alto", csf="csf", chunked="chunked", kernel="kernel_op",
+               hetero="hetero")   # autotune candidate -> phase 5h path
+
+
+def measured_order(report) -> list[str]:
+    """The probed candidates by their measured seconds summed over the modes."""
+    return sorted(report.timings, key=lambda n: (sum(report.timings[n].values()), n))
+
+
+def log_report(tag, report, role_ms=None) -> None:
+    """A tune's summary, prior and measured orders, and each probe's time
+    (beside phase 5h's time for the same path, where given)."""
+    for line in report.summary().splitlines():
+        log(f"[4a]   {tag}: {line}")
+    log(f"[4a]   {tag}: prior={report.prior_name} prior order={report.prior_order} "
+        f"measured order={measured_order(report)} probes={report.probe_breakdown()}")
+    for name, per in sorted(report.timings.items()):
+        beside = ""
+        if role_ms is not None and name in ROLE_OF:
+            beside = " | 5h " + " ".join(f"m{m}={t:.3f}ms" for m, t in enumerate(role_ms[ROLE_OF[name]]))
+        log(f"[4a]   {tag}: {name:16s} " + " ".join(f"m{m}={t * 1e3:.3f}ms"
+                                                   for m, t in sorted(per.items())) + beside)
+
+
+#: The only reasons a phase-4a tune may skip a candidate; any other is a failure.
+ALLOWED_SKIPS = ("pruned by cost-model prior", "over accuracy budget")
+
+
+def require_allowed_skips(tag, report) -> None:
+    """Fail unless every skipped candidate was pruned by the prior or
+    rejected over an accuracy budget."""
+    bad = {n: why for n, why in report.skipped.items() if not why.startswith(ALLOWED_SKIPS)}
+    if bad:
+        fail(f"the {tag} tune skipped candidates for a failure: {bad}")
+
+
+def autotune_checks(st, plan, formats, kernel_run, role_ms, device) -> int:
+    """Phase 4a: the autotuner on the card (see the module docstring).
+    Returns the float kernel's launches in cp_als through the tuned engine
+    at (a)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    try:
+        return _autotune_checks(st, plan, formats, kernel_run, role_ms, device, Path(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _autotune_checks(st, plan, formats, kernel_run, role_ms, device, tmp: Path) -> int:
+    chunking = dict(chunk_shape=plan.chunk_shape, capacity=plan.capacity)
+    fp = rt.engine.device_fingerprint(device)
+    log(f"[4a] device_fingerprint={fp} id={rt.engine.device_fingerprint_id(fp)}")
+
+    # 1. The README's quickstart on the card, against a `kernel` run.
+    small = rt.table1_tensor("nell2")
+    t0 = time.perf_counter()
+    quick = rt.cp_als(small, 10, n_iters=5, engine="auto")
+    t_quick = time.perf_counter() - t0
+    kern = rt.cp_als(small, 10, n_iters=5, engine="kernel")
+    gap = max(abs(a - b) for a, b in zip(quick.fit_history + quick.diff_history,
+                                         kern.fit_history + kern.diff_history, strict=True))
+    log(f"[4a] quickstart cp_als(table1_tensor('nell2'), 10, n_iters=5, engine='auto') in "
+        f"{t_quick:.2f}s: engine={quick.engine} fit={quick.fit_history}; kernel fit="
+        f"{kern.fit_history}; max gap (fit, diff)={gap:.3e} (tolerance {SMALL_ATOL})")
+    log_report("quickstart", quick.tune_report)
+    require_allowed_skips("quickstart", quick.tune_report)
+    if gap > SMALL_ATOL or not quick.engine.startswith("auto:"):
+        fail("the quickstart's auto run left the kernel run")
+
+    # 2. Cold tune at (a), then cp_als through the tuned engine.  The tuner
+    # measures the tensor's FormatStats once (exact fiber counts, from 5h's
+    # cached CSF trees, in `formats`); they are taken first here, so that
+    # their host time shows apart from the probes'.
+    t0 = time.perf_counter()
+    stats = rt.engine.WorkloadStats(st.shape, st.nnz, formats.format_stats(st))
+    log(f"[4a] FormatStats of (a) measured in {time.perf_counter() - t0:.1f}s: fibers "
+        f"{stats.format_stats.fiber_counts}; analytic prior order at (a): "
+        f"{rt.engine.prior_order(stats, RANK, list(LOSSLESS))}")
+    cold_store = tmp / "cold.json"
+    t0 = time.perf_counter()
+    cold = rt.build_engine(st, "auto", RANK, formats=formats,
+                           tune=rt.TunePolicy(store=rt.TuningStore(cold_store)), **chunking)
+    t_cold = time.perf_counter() - t0
+    rep = cold.report
+    log(f"[4a] cold tune at (a) in {t_cold:.2f}s: engine={cold.name}")
+    log_report("cold", rep, role_ms)
+    require_allowed_skips("cold", rep)
+    lost = sorted(set(LOSSLESS) & set(rep.skipped))
+    if lost:
+        fail(f"cold tune at (a) skipped {lost}: {[rep.skipped[n] for n in lost]}")
+    if not set(rep.winners.values()) <= set(FLOAT_KERNEL_BACKENDS):
+        fail(f"cold tune at (a) chose {rep.winners}, not the float-kernel backends")
+    mttkrp_kernel.launches = 0
+    mttkrp_fixed_kernel.launches = 0
+    t0 = time.perf_counter()
+    res = rt.cp_als(st, RANK, n_iters=N_ITERS, engine=cold, seed=0)
+    t_run = time.perf_counter() - t0
+    launches, fixed_launches = mttkrp_kernel.launches, mttkrp_fixed_kernel.launches
+    fit_gap = max(abs(a - b) for a, b in zip(res.fit_history, kernel_run.fit_history, strict=True))
+    factor_gap = max(float((a - b).abs().max())
+                     for a, b in zip(res.factors, kernel_run.factors, strict=True))
+    log(f"[4a] cp_als engine={res.engine} at (a) in {t_run:.1f}s: float kernel launches="
+        f"{launches} (expected "
+        f"{N_ITERS * st.ndim}), fixed kernel launches={fixed_launches}; |fit - fit kernel| max="
+        f"{fit_gap:.3e} (tolerance {FIT_ATOL}); max |factor - factor kernel|={factor_gap:.3e} "
+        f"(tolerance {FACTOR_ATOL})")
+    log(f"[4a]   steady iteration: auto {steady(res.iter_times):.3f} ms, kernel "
+        f"{steady(kernel_run.iter_times):.3f} ms; iter_times={res.iter_times}")
+    if launches != N_ITERS * st.ndim or fixed_launches:
+        fail(f"cp_als through the auto engine launched the float kernel {launches} times "
+             f"(expected {N_ITERS * st.ndim}) and the fixed one {fixed_launches} times")
+    if fit_gap > FIT_ATOL or factor_gap > FACTOR_ATOL:
+        fail("cp_als through the auto engine left the kernel run")
+
+    # 3. Warm hit on the same store.
+    t0 = time.perf_counter()
+    warm = rt.build_engine(st, "auto", RANK, formats=formats,
+                           tune=rt.TunePolicy(store=rt.TuningStore(cold_store)), **chunking)
+    t_warm = time.perf_counter() - t0
+    wrep = warm.report
+    log(f"[4a] warm hit in {t_warm:.3f}s (cold {t_cold:.2f}s): source={wrep.source} "
+        f"probes={wrep.n_probes} winners={wrep.winners}")
+    require_allowed_skips("warm", wrep)
+    if wrep.source != "persisted" or wrep.n_probes != 0 or wrep.winners != rep.winners:
+        fail("the warm tune at (a) was not a zero-probe hit with the cold winners")
+
+    # 4. Pruning by the analytic prior: printed, not held.
+    t0 = time.perf_counter()
+    pruned = rt.build_engine(st, "auto", RANK, formats=formats, **chunking,
+                             tune=rt.TunePolicy(max_probes=3,
+                                                store=rt.TuningStore(tmp / "pruned.json")))
+    prep = pruned.report
+    log(f"[4a] max_probes=3 in {time.perf_counter() - t0:.2f}s: probed {sorted(prep.timings)} "
+        f"(prior order {prep.prior_order}); "
+        f"picked {prep.winners}; the full measurement picked {rep.winners}")
+    require_allowed_skips("max_probes=3", prep)
+
+    # 5. Calibration on the six TABLE1 tensors, then a calibrated, elided tune.
+    cal_store = rt.TuningStore(tmp / "calibration.json")
+    t0 = time.perf_counter()
+    for name in rt.TABLE1:
+        eng = rt.build_engine(rt.table1_tensor(name), "auto", RANK,
+                              tune=rt.TunePolicy(store=cal_store, prior="default"))
+        log(f"[4a] TABLE1 {name}: winners={eng.report.winners} probes={eng.report.n_probes} "
+            f"skipped={eng.report.skipped}")
+        require_allowed_skips(f"TABLE1 {name}", eng.report)
+    n_obs = len(cal_store.observations(device=fp))
+    log(f"[4a] calibration store: {len(cal_store)} workloads, {n_obs} observations "
+        f"(MIN_OBSERVATIONS {MIN_OBSERVATIONS}) in {time.perf_counter() - t0:.1f}s")
+    cal = rt.CalibratedPrior.from_store(cal_store)
+    for line in cal.calibration.summary().splitlines():
+        log(f"[4a]   {line}")
+    hits = rt.engine.ranking_accuracy(cal_store, cal)
+    base = rt.engine.ranking_accuracy(cal_store, rt.engine.default_prior)
+    log(f"[4a]   used_fit={cal.used_fit} suggested_margin={cal.suggested_margin:.3f} "
+        f"ranking accuracy: calibrated {hits[0]}/{hits[1]}, default {base[0]}/{base[1]}")
+    log(f"[4a]   calibrated order at (a): {cal.order(stats, RANK, list(LOSSLESS))}")
+    t0 = time.perf_counter()
+    calibrated = rt.build_engine(st, "auto", RANK, formats=formats, **chunking,
+                                 tune=rt.TunePolicy(store=cal_store, prior="calibrated"))
+    crep = calibrated.report
+    log(f"[4a] calibrated cold tune at (a) in {time.perf_counter() - t0:.2f}s: "
+        f"probes={crep.n_probes} elided={crep.n_elided} "
+        f"(full sweep {len(rep.timings) * st.ndim}); winners equal to the cold tune's: "
+        f"{crep.winners == rep.winners}")
+    log_report("calibrated", crep, role_ms)
+    require_allowed_skips("calibrated", crep)
+    if crep.source != "measured" or not set(crep.winners.values()) <= set(FLOAT_KERNEL_BACKENDS):
+        fail(f"the calibrated tune at (a) chose {crep.winners}, not the float-kernel backends")
+
+    # 6. Accuracy budget at (a): int7 over budget, the fixed kernel probed.
+    mttkrp_fixed_kernel.launches = 0
+    t0 = time.perf_counter()
+    budgeted = rt.build_engine(st, "auto", RANK, formats=formats, **chunking,
+                               tune=rt.TunePolicy(candidates=("kernel", "fixed:int7",
+                                                              "fixed:int15-12"),
+                                                  accuracy_budget=1e-2,
+                                                  store=rt.TuningStore(tmp / "budget.json")))
+    brep = budgeted.report
+    probe_launches = mttkrp_fixed_kernel.launches
+    log(f"[4a] accuracy_budget=1e-2 at (a) in {time.perf_counter() - t0:.1f}s (host: the "
+        f"values quantized per preset, the error sample's exact subset): errors={brep.errors} "
+        f"skipped={brep.skipped} "
+        f"winners={brep.winners}; fixed kernel launches during the probes={probe_launches}")
+    require_allowed_skips("budgeted", brep)
+    if "over accuracy budget" not in brep.skipped.get("fixed:int7", ""):
+        fail("fixed:int7 was not rejected over the 1e-2 budget at (a)")
+    if probe_launches == 0:
+        fail("the budgeted tune at (a) never launched the fixed kernel")
+    return launches
 
 
 def main() -> int:
@@ -931,7 +1147,12 @@ def main() -> int:
         f"float kernel {steady(float_iter_times):.3f} ms")
 
     # 5h. The execution roles' MTTKRP per mode at case (a), in turns.
-    time_roles(st_a, ct_a, dev_a, engines, formats_a, device)
+    role_ms = time_roles(st_a, ct_a, dev_a, engines, formats_a, device)
+
+    # 4a. The autotuner on the card, after 5h and on its layouts.
+    t0 = time.perf_counter()
+    auto_launches = autotune_checks(st_a, plan_a, formats_a, kernel_run, role_ms, device)
+    log(f"[4a] phase took {time.perf_counter() - t0:.1f}s")
     smi_after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -942,8 +1163,8 @@ def main() -> int:
 
     # 6. Kernels line (ms/plain_ms/bound_ms: the 3 launches of one CP-ALS
     # iteration at case (a)'s shapes, summed over the modes; launches: the
-    # main paths' runs, the float kernel's through `kernel` and `hetero`, the
-    # fixed kernel's over both of its runs).
+    # main paths' runs, the float kernel's through `kernel`, `hetero` and the
+    # tuned `auto` engine, the fixed kernel's over both of its runs).
     def entry(kind, rows, n_launches, err):
         return {**KERNELS[kind], "route": "cuda", "launches": n_launches, "max_abs_err": err,
                 "ms": sum(r["ms"] for r in rows),
@@ -952,7 +1173,8 @@ def main() -> int:
                 "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
                              else "operations"),
                 "library_ms": None}
-    print(json.dumps({"kernels": [entry("float", modes, launches + hetero_launches, worst),
+    print(json.dumps({"kernels": [entry("float", modes, launches + hetero_launches + auto_launches,
+                                        worst),
                                   entry("fixed", fixed_modes, fixed_launches,
                                         float(worst_fixed))]}), flush=True)
     # 7. Device line, last.

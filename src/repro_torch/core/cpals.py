@@ -5,8 +5,12 @@ Everything except MTTKRP — Gram matrices, Hadamard products, the
 pseudo-inverse solve, normalization, the fit — is dense float32 work on the
 engine's device.  The engine is any backend name registered in
 `repro_torch.engine` (`ref`, `alto`, `csf`, `chunked`, `kernel`, `fixed`,
-`hetero`) or preset id (`"fixed:int15-12"`), an `Engine` from
-`build_engine`, or a callable ``f(factors, mode) -> (I_mode, R)``.
+`hetero`) or preset id (`"fixed:int15-12"`), `"auto"` (the autotuner:
+it measures the eligible backends per (tensor, rank, mode) and dispatches
+each mode to its winner; `tune=TunePolicy(...)` sets its knobs), an
+`Engine` from `build_engine`, or a callable ``f(factors, mode) -> (I_mode, R)``.
+The run emits `cp_als.decompose`, `.iter`, `.mode` and `.fit` spans when
+tracing is on (`repro_torch.obs`).
 
 Normalization is L-infinity by default (paper §IV-C); L2 is available.
 """
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.tracing import span
 from .sptensor import SparseTensor
 
 __all__ = [
@@ -41,9 +46,15 @@ class CPResult:
     diff_history: list[float]
     iter_times: list[float]
     engine: str
-    #: Measured MTTKRP relative error of a lossy (fixed-point) engine on the
-    #: final factors; None for lossless engines and bare callables.
+    #: Measured MTTKRP relative error of the quantized (lossy) engine that
+    #: produced the factors — the autotuner's per-mode error measurements
+    #: when available, else one direct comparison against the float COO
+    #: reference on the final factors.  None for exact engines.
     quant_error: float | None = None
+    #: The autotuner's report (winners, timings, errors) when engine="auto"
+    #: built the engine in this call (or a prebuilt autotuned engine was
+    #: passed); None otherwise.
+    tune_report: object | None = None
 
 
 def init_factors(shape, rank: int, seed: int = 0, *,
@@ -137,25 +148,60 @@ def _exact_mttkrp(eng) -> bool:
     the fit fast path (inner product from `mlast`) matches the slow path.
     Lossy backends (fixed point, by name or preset id) and lock-free
     collision dropping give approximate MTTKRPs, whose noise must not bias
-    the reported fit; a bare callable is unknown, so neither qualifies."""
+    the reported fit; an autotuned engine qualifies when every winner it
+    dispatches to is lossless; a bare callable is unknown, so it does not."""
     ctx = getattr(eng, "context", None)
     if ctx is not None and ctx.lockfree_mode:
         return False
     spec = getattr(eng, "spec", None)
-    return spec is not None and spec.lossless
+    if spec is not None:
+        return spec.lossless
+    report = getattr(eng, "report", None)
+    if report is not None:  # autotuned: every dispatched winner must be exact
+        from ..engine import candidate_lossless
+        return all(candidate_lossless(n) for n in set(report.winners.values()))
+    return False
+
+
+def _lossy_winners(eng) -> list[str]:
+    """The quantized candidates an engine dispatches to: the spec itself for
+    an explicit lossy engine, the lossy subset of the autotuned winners."""
+    spec = getattr(eng, "spec", None)
+    if spec is not None:
+        return [] if spec.lossless else [eng.name]
+    report = getattr(eng, "report", None)
+    if report is not None:
+        from ..engine import candidate_lossless
+        return [n for n in sorted(set(report.winners.values()))
+                if not candidate_lossless(n)]
+    return []
 
 
 def _measured_quant_error(eng, st: SparseTensor, factors, mlast, coo) -> float | None:
-    """Relative error of a lossy engine's last-mode MTTKRP against the float
-    COO reference on the final factors.  The last mode's MTTKRP does not
-    read the last factor, so the final iteration's output `mlast` is the
-    engine's output on the final factors: reusing it spares one launch."""
-    spec = getattr(eng, "spec", None)
-    if spec is None or spec.lossless:
+    """Measured MTTKRP relative error of a lossy engine, for CPResult.
+
+    Prefers the autotuner's per-mode error probes (measured against the
+    float reference during tuning); without them, compares the engine's
+    output in the last mode (for an autotuned engine: the last mode a lossy
+    winner serves) against the float COO reference on the final factors.
+    The last mode's MTTKRP does not read the last factor, so the final
+    iteration's output `mlast` is the engine's output on the final factors:
+    reusing it spares one launch."""
+    lossy = _lossy_winners(eng)
+    if not lossy:
         return None
-    from .mttkrp import mttkrp_coo
+    report = getattr(eng, "report", None)
     mode = st.ndim - 1
-    out = mlast if mlast is not None else eng(factors, mode)
+    if report is not None:
+        errs = [e for n in lossy for e in getattr(report, "errors", {}).get(n, {}).values()]
+        if errs:
+            return max(errs)
+        # No recorded errors (a lossy candidate admitted with no budget):
+        # measure a mode the lossy winner serves — the dispatcher may route
+        # other modes to a lossless backend.
+        mode = max(m for m, w in report.winners.items() if w in lossy)
+    from .mttkrp import mttkrp_coo
+    out = mlast if mlast is not None and mode == st.ndim - 1 else eng(factors, mode)
     coords, values = coo
     ref = mttkrp_coo(factors, coords, values, mode=mode, out_dim=st.shape[mode])
     return float(torch.linalg.vector_norm(out - ref) / (torch.linalg.vector_norm(ref) + 1e-30))
@@ -172,32 +218,48 @@ def cp_als(
     track_diff: bool = True,
     tol: float | None = None,
     device: str | torch.device | None = None,
+    tune=None,
     **engine_kwargs,
 ) -> CPResult:
     """Decompose `st` into `rank` components by alternating least squares.
 
     `device` None means the CUDA card (and raises where there is none);
-    a prebuilt engine brings its own.  `engine_kwargs` are `build_engine`
-    options (mem_bytes, chunk_shape, capacity, fixed_preset, lockfree_mode,
-    dense_fraction, plans, formats); the reference's tuning keywords raise
-    `NotImplementedError` (ROADMAP Queue 1 item 8).
+    a prebuilt engine brings its own.  `tune` is a
+    `repro_torch.engine.TunePolicy` bundling the autotuner's knobs
+    (candidates, warmup, reps, store, prior, max_probes, elide,
+    elide_margin, accuracy_budget); its `accuracy_budget` (with
+    engine="auto") admits the fixed-point preset candidates, each held to
+    that max per-mode MTTKRP relative error.  The nine tuning keywords are
+    still accepted inside `engine_kwargs` as deprecated shims (one
+    `DeprecationWarning` per call folds them into the policy); the rest
+    must be `build_engine` options (mem_bytes, chunk_shape, capacity,
+    fixed_preset, lockfree_mode, dense_fraction, plans, formats,
+    autotune_modes — unknown keywords raise a `TypeError` naming the
+    nearest valid spelling).
 
     Each iteration ends in one device synchronisation, so `iter_times` holds
     finished work, and the fit adds one host readout.  A lossy engine
     (fixed point) keeps the factors-only fit and reports `quant_error`."""
     from ..engine import build_engine, validate_engine_kwargs
+    from ..engine.tunepolicy import TunePolicy, split_tune_kwargs
 
-    validate_engine_kwargs("cp_als", engine_kwargs)
+    legacy = split_tune_kwargs(engine_kwargs)
+    validate_engine_kwargs("cp_als", engine_kwargs, extra=("autotune_modes",))
+    policy = TunePolicy.resolve(tune, caller="cp_als", **legacy)
     if callable(engine):
+        if policy.accuracy_budget is not None:
+            raise ValueError(
+                "accuracy_budget only applies to engine='auto'; a prebuilt "
+                "engine has already made its format decision")
         if engine_kwargs:
             raise TypeError(f"engine options {sorted(engine_kwargs)} need an engine name")
         eng = engine
         device = _engine_device(eng, device)
         eng_name = getattr(engine, "name", None) or getattr(engine, "__name__", "custom")
     else:
-        eng = build_engine(st, engine, rank, device=device, **engine_kwargs)
+        eng = build_engine(st, engine, rank, tune=policy, device=device, **engine_kwargs)
         device = eng.context.device
-        eng_name = eng.name
+        eng_name = eng.name  # e.g. "chunked", "auto:hetero"
 
     n = st.ndim
     factors = init_factors(st.shape, rank, seed, device=device)
@@ -207,31 +269,46 @@ def cp_als(
     fit_history, diff_history, iter_times = [], [], []
     prev_fit = -np.inf
     mlast = None
-    for _ in range(n_iters):
-        t0 = time.perf_counter()
-        for mode in range(n):
-            m = eng(factors, mode)
-            # A = M (∘_{k≠mode} F_kᵀF_k)†  (Alg. 1 l.5-7)
-            v = torch.ones((rank, rank), dtype=torch.float32, device=device)
-            for k in range(n):
-                if k != mode:
-                    v = v * (factors[k].T @ factors[k])
-            a, lam = _normalize(m @ _pinv(v), norm)
-            factors[mode] = a
-            mlast = m
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        iter_times.append(time.perf_counter() - t0)
+    decompose_sp = span("cp_als.decompose", engine=eng_name, shape=list(st.shape),
+                        nnz=int(st.nnz), rank=rank, n_iters=n_iters)
+    with decompose_sp:
+        for it in range(n_iters):
+            iter_sp = span("cp_als.iter", iter=it)
+            with iter_sp:
+                t0 = time.perf_counter()
+                for mode in range(n):
+                    # Mode spans bound host dispatch only: the device
+                    # synchronisation sits at the iteration's end.
+                    with span("cp_als.mode", mode=mode):
+                        m = eng(factors, mode)
+                        # A = M (∘_{k≠mode} F_kᵀF_k)†  (Alg. 1 l.5-7)
+                        v = torch.ones((rank, rank), dtype=torch.float32, device=device)
+                        for k in range(n):
+                            if k != mode:
+                                v = v * (factors[k].T @ factors[k])
+                        a, lam = _normalize(m @ _pinv(v), norm)
+                        factors[mode] = a
+                        mlast = m
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                dt = time.perf_counter() - t0
+                # One measurement, two views: `iter_times` and the span's
+                # `seconds` attribute carry the same number.
+                iter_times.append(dt)
+                iter_sp.set(seconds=dt)
 
-        f = fit_value(st, factors, lam,
-                      mlast=mlast if fit_fast else None,
-                      last_mode=n - 1 if fit_fast else None, coo=coo)
-        fit_history.append(f)
-        if track_diff:
-            diff_history.append(avg_abs_diff(st, factors, lam, coo=coo))
-        if tol is not None and abs(f - prev_fit) < tol:
-            break
-        prev_fit = f
+            with span("cp_als.fit", iter=it, fast=fit_fast):
+                f = fit_value(st, factors, lam,
+                              mlast=mlast if fit_fast else None,
+                              last_mode=n - 1 if fit_fast else None, coo=coo)
+            fit_history.append(f)
+            if track_diff:
+                diff_history.append(avg_abs_diff(st, factors, lam, coo=coo))
+            if tol is not None and abs(f - prev_fit) < tol:
+                break
+            prev_fit = f
+        decompose_sp.set(fit=fit_history[-1] if fit_history else None)
 
     quant_error = _measured_quant_error(eng, st, factors, mlast, coo)
-    return CPResult(factors, lam, fit_history, diff_history, iter_times, eng_name, quant_error)
+    return CPResult(factors, lam, fit_history, diff_history, iter_times, eng_name, quant_error,
+                    tune_report=getattr(eng, "report", None))

@@ -117,7 +117,7 @@ def _build_chunked(ctx: EngineContext):
     return engine
 
 
-@register_backend("kernel", needs_chunking=True,
+@register_backend("kernel", needs_chunking=True, launches_kernel=True,
                   description="PRISM chunked format through the hand-written CUDA kernel")
 def _build_kernel(ctx: EngineContext):
     dev = ctx.device_arrays()
@@ -131,7 +131,7 @@ def _build_kernel(ctx: EngineContext):
 
 
 @register_backend("fixed", needs_chunking=True, supports_fixed_point=True, lossless=False,
-                  presets=tuple(FIXED_PRESETS),
+                  presets=tuple(FIXED_PRESETS), launches_kernel=True,
                   description="PRISM chunked + paper Alg. 2 fixed point through the "
                               "hand-written CUDA kernel")
 def _build_fixed(ctx: EngineContext):
@@ -159,7 +159,7 @@ def _build_fixed(ctx: EngineContext):
     return engine
 
 
-@register_backend("hetero", needs_chunking=True,
+@register_backend("hetero", needs_chunking=True, launches_kernel=True,
                   description="dense (einsum)/sparse (CUDA kernel) split of the chunk tasks, "
                               "cost-model scheduled (paper §IV-D)")
 def _build_hetero(ctx: EngineContext):

@@ -25,8 +25,10 @@ __all__ = [
     "backend_table",
     "build_candidate",
     "candidate_lossless",
+    "eligible_backends",
     "get_backend",
     "parse_candidate",
+    "preset_candidates",
     "register_backend",
     "registered_backends",
 ]
@@ -42,7 +44,14 @@ class BackendSpec:
     lossless             — equal to the float COO reference up to summation
                            order, so CP-ALS may take its fit fast path.
     presets              — the Qm.n presets this backend can run
-                           (`FIXED_PRESETS` names); ``"name:preset"`` pins one.
+                           (`FIXED_PRESETS` names); ``"name:preset"`` pins one,
+                           and each becomes an autotune candidate under an
+                           accuracy budget.
+    min_devices          — minimum device count to be eligible (CUDA cards,
+                           or 1 for a CPU context).
+    launches_kernel      — runs a hand-written CUDA kernel on a CUDA
+                           context, so the autotuner re-raises its failures
+                           there instead of skipping it as a slow candidate.
     """
 
     name: str
@@ -51,6 +60,8 @@ class BackendSpec:
     supports_fixed_point: bool = False
     lossless: bool = True
     presets: tuple[str, ...] = ()
+    min_devices: int = 1
+    launches_kernel: bool = False
     description: str = ""
 
 
@@ -59,7 +70,8 @@ _REGISTRY: dict[str, BackendSpec] = {}
 
 def register_backend(name: str, *, needs_chunking: bool = False,
                      supports_fixed_point: bool = False, lossless: bool = True,
-                     presets: tuple[str, ...] = (), description: str = ""):
+                     presets: tuple[str, ...] = (), min_devices: int = 1,
+                     launches_kernel: bool = False, description: str = ""):
     """Decorator registering a builder under `name` (last wins)."""
     if ":" in name:
         raise ValueError(
@@ -70,7 +82,8 @@ def register_backend(name: str, *, needs_chunking: bool = False,
         _REGISTRY[name] = BackendSpec(
             name=name, build=build, needs_chunking=needs_chunking,
             supports_fixed_point=supports_fixed_point, lossless=lossless,
-            presets=tuple(presets), description=description)
+            presets=tuple(presets), min_devices=min_devices,
+            launches_kernel=launches_kernel, description=description)
         return build
     return deco
 
@@ -88,8 +101,8 @@ def registered_backends() -> dict[str, BackendSpec]:
 
 
 # Candidate ids: "backend" or "backend:preset" ("fixed:int7").  These
-# helpers alone parse and build that spelling, as in the reference; the
-# tuner that enumerates them is ROADMAP Queue 1 item 8.
+# helpers alone parse, enumerate and build that spelling, as in the
+# reference: the tuning store, cost model and autotuner all come through here.
 
 def parse_candidate(candidate: str) -> tuple[str, str | None]:
     """Split a candidate id into (backend name, preset or None), validating
@@ -124,19 +137,46 @@ def build_candidate(candidate: str, ctx: EngineContext):
     return _REGISTRY[name].build(ctx)
 
 
+def _n_devices(n_devices: int | None) -> int:
+    """`n_devices`, or the CUDA cards this process sees (1 without a card:
+    a CPU context is one device)."""
+    return max(1, torch.cuda.device_count()) if n_devices is None else n_devices
+
+
+def preset_candidates(*, n_devices: int | None = None) -> list[str]:
+    """Every lossy (backend, preset) candidate id this process could build:
+    what an accuracy budget adds to the default candidate set, sorted by
+    name so that probe order and tie-breaks do not depend on registration."""
+    n_devices = _n_devices(n_devices)
+    return [f"{s.name}:{p}"
+            for s in sorted(_REGISTRY.values(), key=lambda s: s.name)
+            if not s.lossless and n_devices >= s.min_devices
+            for p in s.presets]
+
+
+def eligible_backends(*, n_devices: int | None = None,
+                      lossless_only: bool = False) -> list[str]:
+    """Backends whose device requirements `n_devices` satisfy (None: the
+    CUDA cards this process sees, or 1), sorted by name."""
+    n_devices = _n_devices(n_devices)
+    return [s.name
+            for s in sorted(_REGISTRY.values(), key=lambda s: s.name)
+            if n_devices >= s.min_devices and (s.lossless or not lossless_only)]
+
+
 def backend_table() -> str:
     """Markdown capability table of the registered backends, by name."""
     def mark(flag: bool) -> str:
         return "✓" if flag else "—"
 
     rows = [
-        "| backend | chunked | fixed-point | lossless | presets | description |",
-        "|---------|---------|-------------|----------|---------|-------------|",
+        "| backend | chunked | fixed-point | lossless | presets | min devices | description |",
+        "|---------|---------|-------------|----------|---------|-------------|-------------|",
     ]
     for s in sorted(_REGISTRY.values(), key=lambda s: s.name):
         presets = " ".join(f"`{p}`" for p in s.presets) or "—"
         rows.append(f"| `{s.name}` | {mark(s.needs_chunking)} | {mark(s.supports_fixed_point)} "
-                    f"| {mark(s.lossless)} | {presets} | {s.description} |")
+                    f"| {mark(s.lossless)} | {presets} | {s.min_devices} | {s.description} |")
     return "\n".join(rows)
 
 
@@ -200,14 +240,16 @@ class EngineContext:
 
 
 class Engine:
-    """Callable engine handle: `engine(factors, mode) -> (I_mode, R)`."""
+    """Callable engine handle: `engine(factors, mode) -> (I_mode, R)`, with
+    its build context and, for an autotuned engine, the tuner's report."""
 
     def __init__(self, name: str, fn: Callable, *, spec: BackendSpec | None = None,
-                 context: EngineContext | None = None):
+                 context: EngineContext | None = None, report=None):
         self.name = name
         self._fn = fn
         self.spec = spec
         self.context = context
+        self.report = report
 
     def __call__(self, factors, mode: int):
         return self._fn(factors, mode)

@@ -221,12 +221,16 @@ class FormatStats:
         return float(alto_index_bytes(self.nnz, self.key_words))
 
     @classmethod
-    def from_tensor(cls, st: SparseTensor) -> FormatStats:
+    def from_tensor(cls, st: SparseTensor,
+                    fiber_counts: tuple[int, ...] | None = None) -> FormatStats:
+        """Exact statistics of `st`; `fiber_counts`, when given, are the
+        fiber counts already known per mode (built trees' `n_fibers`)."""
         bits = alto_key_bits(st.shape)
         return cls(
             shape=st.shape,
             nnz=st.nnz,
-            fiber_counts=tuple(fiber_count(st, m) for m in range(st.ndim)),
+            fiber_counts=(tuple(fiber_counts) if fiber_counts is not None
+                          else tuple(fiber_count(st, m) for m in range(st.ndim))),
             key_bits=bits,
             key_words=max(1, -(-bits // 32)),
             measured=True,

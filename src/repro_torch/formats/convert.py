@@ -19,7 +19,7 @@ import torch
 
 from ..core.sptensor import SparseTensor
 from .alto import ALTOTensor, alto_to_coo, build_alto
-from .csf import CSFModeTree, build_csf_tree, csf_to_coo
+from .csf import CSFModeTree, build_csf_tree, csf_to_coo, fiber_count
 
 __all__ = [
     "FormatCache",
@@ -140,11 +140,16 @@ class FormatCache:
 
     # -- stats --------------------------------------------------------------
     def format_stats(self, st: SparseTensor):
-        """Measured `FormatStats` for `st` (exact fiber counts; cached)."""
+        """Measured `FormatStats` for `st` (exact fiber counts; cached).  A
+        mode whose CSF tree is cached takes the tree's `n_fibers`, the count
+        `fiber_count` would recompute with a sort of every nonzero."""
         from . import FormatStats
-        k = (self._tensor_key(st), "stats")
+        tkey = self._tensor_key(st)
+        k = (tkey, "stats")
         if k not in self._stats:
-            self._stats[k] = FormatStats.from_tensor(st)
+            fibers = tuple(self._csf[(tkey, m)].n_fibers if (tkey, m) in self._csf
+                           else fiber_count(st, m) for m in range(st.ndim))
+            self._stats[k] = FormatStats.from_tensor(st, fiber_counts=fibers)
         return self._stats[k]
 
     def clear(self) -> None:

@@ -4,7 +4,8 @@ Each source in `csrc/` is compiled by nvcc, at first use, into a shared
 library with a plain C interface under `build/kernels/` at the repository
 root, named by a hash of the source, the shared headers (`csrc/*.cuh`) and
 the flags, and loaded with ctypes.
-Nothing is built when a module is imported.  A failed build raises.
+Nothing is built when a module is imported.  A failed build or load
+raises `KernelError`.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "build_log", "load"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "KernelError", "build", "build_log", "load"]
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -24,6 +25,14 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+
+
+class KernelError(RuntimeError):
+    """A CUDA kernel of the port failed to build, load or launch.  Callers
+    that tolerate a failing candidate (the autotuner) re-raise it: a broken
+    kernel must never pass for a slow one."""
+
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -31,7 +40,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME); nvcc builds the kernels")
+        raise KernelError("no CUDA toolkit found (set CUDA_HOME); nvcc builds the kernels")
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
@@ -65,7 +74,7 @@ def build(names) -> dict[str, Path]:
         todo[name].with_suffix(".log").write_text(out)
         os.replace(tmp, todo[name])  # atomic: concurrent builders never load a partial file
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelError("\n".join(failed))
     return paths
 
 
@@ -79,5 +88,9 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/`name`.cu, built first if needed."""
     with _lock:
         if name not in _libs:
-            _libs[name] = ctypes.CDLL(str(build([name])[name]))
+            path = build([name])[name]
+            try:
+                _libs[name] = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelError(f"cannot load {path}: {e}") from e
         return _libs[name]

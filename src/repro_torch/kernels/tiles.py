@@ -20,6 +20,8 @@ import dataclasses
 
 import torch
 
+from ._build import KernelError
+
 __all__ = ["SMEM_BUDGET", "TIERS", "LaunchPlan", "plan_launch", "task_smem_bytes"]
 
 #: Dynamic shared memory one block may use on an H100 (227 KB, opt-in).
@@ -162,10 +164,10 @@ def new_output(plan: LaunchPlan, shape, dtype, device) -> torch.Tensor:
 
 def raise_on(rc: int, lib, name: str, plan: LaunchPlan) -> None:
     if rc == _LAYOUT_MISMATCH:
-        raise RuntimeError(f"{name} kernel refused the launch: the plan's {plan.smem_bytes} B "
+        raise KernelError(f"{name} kernel refused the launch: the plan's {plan.smem_bytes} B "
                            f"of shared memory disagree with the kernel's layout ({plan})")
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
+        raise KernelError(f"{name} kernel launch failed: "
                            f"{lib.prism_cuda_error_string(rc).decode()} ({rc}; {plan})")
 
 

@@ -118,11 +118,17 @@ def test_no_device_without_cuda_raises(monkeypatch):
 
 def test_build_engine_surface():
     st = rt.table1_tensor("nell2")
-    for bad in (dict(method="auto"), dict(method="kernel", tune=object()),
-                dict(method="kernel", max_probes=2), dict(method="chunked", store=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            rt.build_engine(st, rank=4, device="cpu", **bad)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    # The tuning stack is ported: "auto" is the default method, and the
+    # reference's tuning keywords are deprecated shims, as in the reference.
+    eng = rt.build_engine(st, rank=4, device="cpu", tune=rt.TunePolicy(warmup=0, reps=1))
+    assert eng.name.startswith("auto:") and eng.report.source == "measured"
+    with pytest.raises(TypeError, match="tune= expects a TunePolicy"):
+        rt.build_engine(st, "kernel", 4, device="cpu", tune=object())
+    for bad in (dict(method="kernel", max_probes=2), dict(method="chunked", store=True)):
+        with pytest.warns(DeprecationWarning, match="deprecated"):
+            assert rt.build_engine(st, rank=4, device="cpu", **bad).name == bad["method"]
+    with pytest.raises(ValueError, match="accuracy_budget only applies"), \
+            pytest.warns(DeprecationWarning, match="accuracy_budget"):
         rt.cp_als(st, 4, 1, device="cpu", accuracy_budget=0.1)
     with pytest.raises(TypeError, match="did you mean 'capacity'"):
         rt.build_engine(st, "kernel", 4, device="cpu", capacty=8)
