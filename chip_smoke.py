@@ -74,6 +74,27 @@ Phases, each fatal on failure:
      elided tune at (a) (every winner a float-kernel backend); and an
      accuracy budget of 1e-2 over kernel, fixed:int7 and fixed:int15-12
      (int7 rejected over budget, the fixed kernel launched by the probes);
+     4s. the serving path, `DecomposeService` over `cp_als_batched` (plain
+     tensor ops: it launches neither kernel, which is checked): benchmarks/
+     serve_bench.py's load (three shape/nnz families, 4096 requests from
+     seed 0, rank 5, 3 iterations) from 8 closed-loop client threads,
+     max_batch=256, max_wait_ms=20, on a cold store in a fresh temporary
+     directory, then a second service on the same store over the first 512
+     requests (0 probes, only persisted/cached decisions); no request may
+     fail; every result held against the cold service's (the warm ones),
+     against one cp_als_batched call over the same tensors on the same store,
+     and 32 sampled ones against the sequential cp_als(engine="ref"); it
+     prints tensors/s of the service, the batched call and the sequential
+     loop (extrapolated), p50/p99 of queue wait, dispatch and request,
+     batches, max_batch_seen and each bucket's tune report;
+     4b. one cp_als_batched call over 65,536 tensors of the same families
+     (the batch package serves millions of small per-user tensors; 2^16
+     keeps the script inside its time limit), its host steps timed apart
+     first (bucketing, padding, init, each candidate's build and upload, the
+     cold tune per bucket), then the call on the warm store: tensors/s, its
+     iterations against the rest, steady iteration ms per bucket, the
+     padded arrays' bytes and the call's peak device memory; 64 sampled
+     members held against the sequential `ref`;
   6. print the `kernels` line, then, last, the device line.
 
 Tolerance (phases 3 and 4): the float kernel forms each nonzero's product
@@ -87,6 +108,18 @@ against CPU (4, 4f) uses the CPU tests' tolerances against the JAX package.
 Phase 4h holds `alto` and `csf` to `ref` with the same 1e-4 of Σ|terms|:
 they form the same products, CSF grouping a fiber's before the interior
 factor multiplies them, and sum them in another order.
+Phases 4s and 4b hold two runs of one small tensor (batched in other
+company, or sequential) member by member.  Their roundings differ, and ALS
+magnifies a difference by up to κ, the condition number of the Gram
+Hadamard product an update inverts (`solve_kappa`; up to a few hundred on
+this load), so serve_bench's flat 1e-5 on factors fails for a few percent
+of members at this scale (phase 4s prints how many); the JAX package's own
+batched and sequential runs are not bit-identical either.  Factors and
+λ/max(1, |λ|) are held to max(1e-5, κ·2^-17) and fits to max(1e-6,
+κ·2^-20) per iteration: the flat values where the solve is well
+conditioned, about 64 float32 roundings (2^-23) magnified by κ where it is
+not (an eighth of that on the fit, a scalar of the whole reconstruction).
+A member's mix-up or a wrong padding moves them by orders of magnitude more.
 """
 from __future__ import annotations
 
@@ -97,6 +130,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -107,9 +141,17 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch as rt  # noqa: E402
+from repro_torch.batch import (  # noqa: E402
+    autotune_bucket,
+    bucket_tensors,
+    build_batched_kernel,
+    pad_bucket,
+)
+from repro_torch.batch.cpals import _init_batched  # noqa: E402
 from repro_torch.engine import PlanCache, default_plan_cache  # noqa: E402
 from repro_torch.core.mttkrp import _alto_decode  # noqa: E402
 from repro_torch.engine.calibrate import MIN_OBSERVATIONS  # noqa: E402
+from repro_torch.obs import capture  # noqa: E402
 from repro_torch.formats import MAX_KEY_BITS  # noqa: E402
 from repro_torch.kernels import _build, mttkrp_fixed_kernel, mttkrp_kernel, tiles  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
@@ -900,6 +942,271 @@ def _autotune_checks(st, plan, formats, kernel_run, role_ms, device, tmp: Path) 
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 4s and 4b: the serving path (DecomposeService over cp_als_batched).
+# ---------------------------------------------------------------------------
+
+SERVE_RANK, SERVE_ITERS = 5, 3     # benchmarks/serve_bench.py's RANK and N_ITERS
+SERVE_N, SERVE_CLIENTS, SERVE_MAX_BATCH, SERVE_MAX_WAIT_MS = 4096, 8, 256, 20.0
+SERVE_WARM_N = 512                 # the warm second service's share of the load
+SEQ_SAMPLE, BATCH_SAMPLE = 32, 64  # members held against the sequential `ref` run
+BATCH_N = 65536                    # phase 4b: 2^16 tensors in one cp_als_batched call
+# Parity of two batched or sequential runs of the same tensor (see the module
+# docstring): factors and λ/max(1, |λ|) within max(1e-5, κ·2^-17), fits within
+# max(1e-6, κ·2^-20) per iteration, κ from `solve_kappa`.
+BATCH_FACTOR_ATOL, BATCH_FACTOR_KAPPA = 1e-5, 2.0 ** -17
+BATCH_FIT_ATOL, BATCH_FIT_KAPPA = 1e-6, 2.0 ** -20
+
+
+def synthetic_load(n: int, seed: int = 0) -> list[rt.SparseTensor]:
+    """`n` small tensors drawn from three shape/nnz families, shuffled — the
+    arrival order interleaves buckets the way concurrent users would (a
+    copy of benchmarks/serve_bench.py's load)."""
+    rng = np.random.default_rng(seed)
+    families = [
+        ((12, 10, 8), (40, 70)),     # 3-D, band 5/6
+        ((16, 16, 16), (90, 120)),   # pow-2 dims, band 6
+        ((24, 24), (50, 60)),        # 2-D, band 5
+    ]
+    tensors = []
+    for i in range(n):
+        shape, (lo, hi) = families[i % len(families)]
+        nnz = int(rng.integers(lo, hi))
+        coords = np.stack([rng.integers(0, d, size=nnz) for d in shape],
+                          axis=1).astype(np.int32)
+        values = rng.uniform(-1, 1, size=nnz).astype(np.float32)
+        tensors.append(rt.SparseTensor(coords, values, shape))
+    order = rng.permutation(n)
+    return [tensors[i] for i in order]
+
+
+def solve_kappa(factors) -> float:
+    """The largest condition number, over the modes, of the matrix each ALS
+    update inverts: the Hadamard product of the other modes' Grams (float64,
+    from the given factors)."""
+    fs = [np.asarray(f, dtype=np.float64) for f in factors]
+    worst = 1.0
+    for mode in range(len(fs)):
+        v = np.ones((fs[0].shape[1],) * 2)
+        for k, f in enumerate(fs):
+            if k != mode:
+                v = v * (f.T @ f)
+        worst = max(worst, float(np.linalg.cond(v)))
+    return worst
+
+
+def hold_gap(tag: str, got, want, against: str) -> None:
+    """Hold two lists of CPResults of the same tensors together, each member
+    at its own tolerances (BATCH_FACTOR_*, BATCH_FIT_*; κ from `want`)."""
+    worst_gap = worst_fit = worst_ratio = worst_kappa = 0.0
+    over_floor = 0
+    for a, b in zip(got, want, strict=True):
+        fa = [f.cpu().numpy() for f in a.factors]
+        fb = [f.cpu().numpy() for f in b.factors]
+        la, lb = a.lam.cpu().numpy(), b.lam.cpu().numpy()
+        kappa = solve_kappa(fb)
+        gap = max(max(float(np.abs(x - y).max()) for x, y in zip(fa, fb, strict=True)),
+                  float((np.abs(la - lb) / np.maximum(np.abs(lb), 1.0)).max()))
+        fit = max(abs(x - y) for x, y in zip(a.fit_history, b.fit_history, strict=True))
+        over_floor += gap > BATCH_FACTOR_ATOL
+        worst_ratio = max(worst_ratio,
+                          gap / max(BATCH_FACTOR_ATOL, BATCH_FACTOR_KAPPA * kappa),
+                          fit / max(BATCH_FIT_ATOL, BATCH_FIT_KAPPA * kappa))
+        worst_gap, worst_fit = max(worst_gap, gap), max(worst_fit, fit)
+        worst_kappa = max(worst_kappa, kappa)
+    log(f"[{tag}]   {len(got)} results against {against}: max |Δ factor or Δλ/max(1,|λ|)|="
+        f"{worst_gap:.3e} (above {BATCH_FACTOR_ATOL} in {over_floor}), max |Δ fit|="
+        f"{worst_fit:.3e}, max κ={worst_kappa:.1f}; max gap/tolerance={worst_ratio:.3f}")
+    if worst_ratio > 1.0:
+        fail(f"phase {tag}: the results left {against}")
+
+
+def sequential_ref(tensors, device) -> tuple[list[rt.CPResult], float]:
+    """cp_als(engine="ref") one tensor at a time; (results, seconds)."""
+    t0 = time.perf_counter()
+    out = [rt.cp_als(t, SERVE_RANK, SERVE_ITERS, engine="ref", track_diff=False, device=device)
+           for t in tensors]
+    torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0
+
+
+def drive_service(tensors, tune, device) -> tuple[list[rt.CPResult], rt.ServeStats, float, dict]:
+    """serve_bench's closed-loop load: SERVE_CLIENTS threads, each submitting
+    its share one request at a time and waiting for each result.  Returns
+    (results in input order, stats, wall seconds, metrics snapshot); any
+    failed request fails the run."""
+    results: list = [None] * len(tensors)
+    errors: list[str] = []
+    svc = rt.DecomposeService(SERVE_RANK, SERVE_ITERS, tune=tune, max_batch=SERVE_MAX_BATCH,
+                              max_wait_ms=SERVE_MAX_WAIT_MS, device=device)
+    try:
+        def client(idxs):
+            for i in idxs:
+                try:
+                    results[i] = svc.decompose(tensors[i], timeout=600)
+                except Exception as e:  # recorded, then fatal below
+                    errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=client, args=(range(c, len(tensors), SERVE_CLIENTS),))
+                   for c in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        wall = time.perf_counter() - t0
+    finally:
+        svc.close(timeout=120)
+    stats = svc.stats()
+    if errors or any(th.is_alive() for th in threads) or stats.n_failed \
+            or stats.n_completed != len(tensors):
+        fail(f"phase 4s: {stats.n_failed} failed, {stats.n_completed} of {len(tensors)} "
+             f"completed; client errors {errors[:3]}")
+    return results, stats, wall, svc.metrics.snapshot()
+
+
+def log_service(tag: str, stats, wall: float, n: int) -> None:
+    log(f"[4s] {tag}: {n} requests in {wall:.2f}s = {n / wall:.1f} tensors/s; "
+        f"batches={stats.n_batches} max_batch_seen={stats.max_batch_seen} "
+        f"buckets={stats.n_buckets} probes={stats.n_probes} "
+        f"decisions={stats.n_bucket_decisions} dispatch_seconds={stats.dispatch_seconds:.2f}")
+    log(f"[4s]   {tag}: queue_wait_ms={stats.queue_wait_ms} dispatch_ms={stats.dispatch_ms} "
+        f"request_ms={stats.request_ms}")
+
+
+def bucket_reports(results) -> dict:
+    """The distinct bucket reports among `results`, by identity."""
+    return {id(r.tune_report): r.tune_report for r in results}
+
+
+def serve_checks(device) -> None:
+    """Phase 4s: DecomposeService on the card (see the module docstring)."""
+    t0 = time.perf_counter()
+    tensors = synthetic_load(SERVE_N, seed=0)
+    log(f"[4s] synthetic_load({SERVE_N}, seed=0) in {time.perf_counter() - t0:.2f}s; rank "
+        f"{SERVE_RANK}, {SERVE_ITERS} iterations, {SERVE_CLIENTS} closed-loop clients, "
+        f"max_batch={SERVE_MAX_BATCH}, max_wait_ms={SERVE_MAX_WAIT_MS}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        store = Path(tmp) / "serve.json"
+        results, stats, wall, snap = drive_service(
+            tensors, rt.TunePolicy(store=rt.TuningStore(store)), device)
+        log_service("cold service", stats, wall, len(tensors))
+        for name in ("serve.queue_wait_seconds", "serve.dispatch_seconds",
+                     "serve.request_seconds"):
+            h = snap[name]
+            log(f"[4s]   {name}: count={h['count']} p50={h['p50'] * 1e3:.3f}ms "
+                f"p99={h['p99'] * 1e3:.3f}ms max={h['max'] * 1e3:.3f}ms")
+        if stats.n_probes == 0 or "measured" not in stats.n_bucket_decisions:
+            fail("phase 4s: the cold service on a fresh store made no measured decision")
+
+        warm_res, wstats, wwall, _ = drive_service(
+            tensors[:SERVE_WARM_N], rt.TunePolicy(store=rt.TuningStore(store)), device)
+        log_service("warm service (second service, same store)", wstats, wwall, SERVE_WARM_N)
+        if wstats.n_probes != 0 or not set(wstats.n_bucket_decisions) <= {"persisted", "cached"}:
+            fail(f"phase 4s: the warm service probed ({wstats.n_probes} probes, decisions "
+                 f"{wstats.n_bucket_decisions})")
+        hold_gap("4s", warm_res, results[:SERVE_WARM_N], "the cold service's")
+
+        # One batched call over the same tensors, warm on the same store, so
+        # that it runs the kernels the service ran.
+        t0 = time.perf_counter()
+        batched = rt.cp_als_batched(tensors, SERVE_RANK, SERVE_ITERS,
+                                    tune=rt.TunePolicy(store=rt.TuningStore(store)), device=device)
+        torch.cuda.synchronize(device)
+        t_batched = time.perf_counter() - t0
+    reports = bucket_reports(batched)
+    log(f"[4s] one cp_als_batched call: {len(tensors)} tensors in {t_batched:.2f}s = "
+        f"{len(tensors) / t_batched:.1f} tensors/s; {len(reports)} buckets, probes="
+        f"{sum(r.n_probes for r in reports.values())}")
+    # The cold service's first decision per bucket, and one warm decision.
+    shown = [rep for rep in bucket_reports(results).values() if rep.source == "measured"]
+    shown += [next(iter(bucket_reports(warm_res).values()))]
+    for rep in shown:
+        log("[4s]   bucket report: " + json.dumps(rep.to_dict(), sort_keys=True))
+    hold_gap("4s", results, batched, "the one cp_als_batched call's")
+
+    sample = np.random.default_rng(0).choice(len(tensors), SEQ_SAMPLE, replace=False)
+    seq, t_seq = sequential_ref([tensors[i] for i in sample], device)
+    log(f"[4s] sequential cp_als(engine='ref'): {SEQ_SAMPLE} tensors in {t_seq:.2f}s = "
+        f"{SEQ_SAMPLE / t_seq:.1f} tensors/s (extrapolated to {len(tensors)}: "
+        f"{len(tensors) * t_seq / SEQ_SAMPLE:.1f}s); service {len(tensors) / wall:.1f}, "
+        f"batched {len(tensors) / t_batched:.1f} tensors/s")
+    hold_gap("4s", [results[i] for i in sample], seq, "the sequential `ref` runs'")
+
+
+def batched_scale(device) -> None:
+    """Phase 4b: one cp_als_batched call over BATCH_N tensors (see the
+    module docstring), its host steps timed apart first."""
+    t0 = time.perf_counter()
+    tensors = synthetic_load(BATCH_N, seed=1)
+    log(f"[4b] synthetic_load({BATCH_N}, seed=1) in {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    buckets = bucket_tensors(tensors)
+    log(f"[4b] bucket_tensors: {len(buckets)} buckets in {time.perf_counter() - t0:.2f}s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_batch_") as tmp:
+        store = Path(tmp) / "batch.json"
+        host_bytes = 0
+        for (dims, band), bucket in buckets.items():
+            t0 = time.perf_counter()
+            pb = pad_bucket(bucket)
+            t_pad = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            init = _init_batched(bucket, SERVE_RANK, 0)
+            t_init = time.perf_counter() - t0
+            built = {}
+            for name in ("ref", "alto"):
+                t0 = time.perf_counter()
+                build_batched_kernel(name, pb, device)
+                torch.cuda.synchronize(device)
+                built[name] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _, rep = autotune_bucket(pb, SERVE_RANK, rt.TunePolicy(store=rt.TuningStore(store)),
+                                     device=device)
+            torch.cuda.synchronize(device)
+            t_tune = time.perf_counter() - t0
+            nbytes = (pb.coords.nbytes + pb.values.nbytes + pb.mask.nbytes
+                      + sum(f.nbytes for f in init))
+            host_bytes += nbytes
+            log(f"[4b] bucket dims={dims} band={band}: B={pb.size} P={pb.pad_nnz} "
+                f"(nnz {min(pb.nnz)}-{max(pb.nnz)}); host s: pad {t_pad:.3f}, init {t_init:.3f}, "
+                f"ref build+upload {built['ref']:.3f}, alto build+upload {built['alto']:.3f}; "
+                f"cold tune {t_tune:.3f}s ({rep.n_probes} probes) winners={rep.winners}; "
+                f"padded arrays + factors {nbytes / 2**20:.2f} MiB")
+            log("[4b]   bucket report: " + json.dumps(rep.to_dict(), sort_keys=True))
+        del pb, init
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        # Traced: each bucket's span covers its tune lookup, winner build,
+        # init, uploads and iterations; bucketing, padding and the
+        # per-member results fall outside.
+        t0 = time.perf_counter()
+        with capture() as spans:
+            results = rt.cp_als_batched(tensors, SERVE_RANK, SERVE_ITERS, device=device,
+                                        tune=rt.TunePolicy(store=rt.TuningStore(store)))
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) - base
+    for (dims, band), bucket in buckets.items():
+        first = results[bucket.indices[0]]
+        log(f"[4b] bucket dims={dims} band={band}: {first.engine} "
+            f"(source={first.tune_report.source}) iter_times "
+            f"{[round(t * 1e3, 3) for t in first.iter_times]} ms, steady "
+            f"{steady(first.iter_times):.3f} ms")
+    iter_s = sum(s.duration for s in spans if s.name == "cp_als_batched.iter")
+    bucket_s = sum(s.duration for s in spans if s.name == "cp_als_batched.bucket")
+    log(f"[4b] one cp_als_batched call: {BATCH_N} tensors in {wall:.2f}s = {BATCH_N / wall:.1f} "
+        f"tensors/s (warm store); iterations (each ended by a synchronisation) {iter_s:.3f}s; "
+        f"the rest of the bucket spans (tune lookup, winner build, init, uploads, fits) "
+        f"{bucket_s - iter_s:.3f}s; outside them (bucketing, padding, per-member results) "
+        f"{wall - bucket_s:.3f}s; padded arrays + factors {host_bytes / 2**20:.2f} MiB; peak "
+        f"device memory of the call {peak / 2**20:.1f} MiB")
+    sample = np.random.default_rng(1).choice(BATCH_N, BATCH_SAMPLE, replace=False)
+    seq, t_seq = sequential_ref([tensors[i] for i in sample], device)
+    log(f"[4b] sequential cp_als(engine='ref'): {BATCH_SAMPLE} tensors in {t_seq:.2f}s = "
+        f"{BATCH_SAMPLE / t_seq:.1f} tensors/s")
+    hold_gap("4b", [results[i] for i in sample], seq, "the sequential `ref` runs'")
+
+
 def main() -> int:
     # 1. Device check.
     if not torch.cuda.is_available():
@@ -1153,6 +1460,19 @@ def main() -> int:
     t0 = time.perf_counter()
     auto_launches = autotune_checks(st_a, plan_a, formats_a, kernel_run, role_ms, device)
     log(f"[4a] phase took {time.perf_counter() - t0:.1f}s")
+
+    # 4s and 4b. The serving path: it launches neither kernel.
+    mttkrp_kernel.launches = 0
+    mttkrp_fixed_kernel.launches = 0
+    t0 = time.perf_counter()
+    serve_checks(device)
+    log(f"[4s] phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    batched_scale(device)
+    log(f"[4b] phase took {time.perf_counter() - t0:.1f}s")
+    if mttkrp_kernel.launches or mttkrp_fixed_kernel.launches:
+        fail(f"the serving path launched the float kernel {mttkrp_kernel.launches} times and "
+             f"the fixed one {mttkrp_fixed_kernel.launches} times (expected 0)")
     smi_after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,

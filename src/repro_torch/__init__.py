@@ -3,14 +3,18 @@
 The port of the JAX package `repro` to an NVIDIA H100: chunked CP-ALS
 through hand-written Hopper spMTTKRP kernels, float and fixed point (paper
 Alg. 2), the CSF and ALTO layouts (`formats`) with their backends, and the
-paper's heterogeneous dense/sparse split (`hetero`), and the autotuner
+paper's heterogeneous dense/sparse split (`hetero`), the autotuner
 (`engine="auto"`, `TunePolicy`, the tuning store and the calibrated cost
-prior) that chooses among them.  It imports neither JAX nor `repro`; its host-side numpy code
+prior) that chooses among them, and the serving path: batched many-tensor
+CP-ALS (`cp_als_batched`, `repro_torch.batch`), the coalescing
+`DecomposeService` over it (`repro_torch.serve`) and its `MetricsRegistry`
+(`repro_torch.obs`).  It imports neither JAX nor `repro`; its host-side numpy code
 produces the same arrays as the reference from the same seeds.  Entry
 points run on the CUDA card unless the caller passes ``device="cpu"``;
 importing the package builds no kernel.
 
-    from repro_torch import TunePolicy, build_engine, cp_als, decide_partition, table1_tensor
+    from repro_torch import (DecomposeService, TunePolicy, build_engine, cp_als,
+                             cp_als_batched, decide_partition, random_tensor, table1_tensor)
     st = table1_tensor("nell2")
     res = cp_als(st, 10, n_iters=5, engine="auto")                   # measured winner per mode
     res = cp_als(st, 10, n_iters=5, engine="auto",                   # winners persisted
@@ -22,6 +26,10 @@ importing the package builds no kernel.
     eng = build_engine(st, "fixed", 10, fixed_preset="int7", **chunking)  # Q9.7
     res = cp_als(st, 10, n_iters=5, engine=eng)                       # res.quant_error
     res = cp_als(st, 10, n_iters=5, engine="alto")                    # or "csf", "hetero"
+    small = [random_tensor((12, 10, 8), 50, seed=s) for s in range(1000)]
+    results = cp_als_batched(small, 5, n_iters=3)                     # one ALS loop per bucket
+    with DecomposeService(5, n_iters=3, max_batch=256) as svc:        # coalesced requests
+        res = svc.submit(small[0]).result()
 """
 from .core import (
     CROSS_MODE_SLACK,
@@ -101,10 +109,13 @@ from .formats import (
     register_format,
     registered_formats,
 )
-from .obs import enable_tracing, get_tracer, span, traced
+from .obs import MetricsRegistry, enable_tracing, get_tracer, span, traced
+from .batch import cp_als_batched
+from .serve import DecomposeService, ServeStats
 from .interop import (
     chunked_from_reference,
     factors_from_reference,
+    padded_batch_from_reference,
     qfactors_from_reference,
     tensor_from_reference,
 )
@@ -132,15 +143,18 @@ __all__ = [
     "CalibratedPrior",
     "CSFModeTree",
     "ChunkedTensor",
+    "DecomposeService",
     "Engine",
     "EngineContext",
     "FormatCache",
     "FormatStats",
     "HeteroSplit",
     "KernelError",
+    "MetricsRegistry",
     "PartitionPlan",
     "PlanCache",
     "QFormat",
+    "ServeStats",
     "SparseTensor",
     "TunePolicy",
     "TuningStore",
@@ -160,6 +174,7 @@ __all__ = [
     "chunked_from_reference",
     "clamp_capacity",
     "cp_als",
+    "cp_als_batched",
     "cross_mode_error_bound",
     "decide_partition",
     "default_format_cache",
@@ -187,6 +202,7 @@ __all__ = [
     "mttkrp_kernel_op",
     "mttkrp_local",
     "pad_factor",
+    "padded_batch_from_reference",
     "parse_candidate",
     "preset_error_bound",
     "qfactors_from_reference",

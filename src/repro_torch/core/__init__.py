@@ -1,6 +1,8 @@
 """PRISM core in PyTorch: the chunked sparse tensor format, the partition
 decider, float and fixed-point spMTTKRP, the CSF/ALTO ops and baselines,
-the Qm.n formats, lock-free emulation, heterogeneous execution and CP-ALS."""
+the Qm.n formats, lock-free emulation, heterogeneous execution and CP-ALS
+(`cp_als_batched`, batched many-tensor CP-ALS, resolves lazily from
+`repro_torch.batch`)."""
 from .baselines import alto_order
 from .chunking import ChunkedTensor, chunk_tensor, clamp_capacity, replication_stats
 from .cpals import CPResult, avg_abs_diff, cp_als, fit_value, init_factors, reconstruct_nnz
@@ -84,3 +86,12 @@ __all__ = [
     "value_qformat",
     "wave_collision_mask",
 ]
+
+
+def __getattr__(name):
+    # Lazy (PEP 562): `repro_torch.batch` itself imports from
+    # `repro_torch.core.cpals`, so an eager import here would be circular.
+    if name == "cp_als_batched":
+        from ..batch import cp_als_batched
+        return cp_als_batched
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -79,8 +79,10 @@ def _normalize(f: torch.Tensor, norm: str):
 
 def _pinv(v: torch.Tensor) -> torch.Tensor:
     """Pseudo-inverse with the cutoff of `jnp.linalg.pinv`, 10·max(m, n)·eps
-    relative to the largest singular value (torch's default is 10× lower)."""
-    return torch.linalg.pinv(v, rtol=10 * max(v.shape) * torch.finfo(v.dtype).eps)
+    relative to each matrix's largest singular value (torch's default is
+    10× lower).  m and n are the last two dimensions, so a batched
+    (B, R, R) stack takes R's cutoff, not B's."""
+    return torch.linalg.pinv(v, rtol=10 * max(v.shape[-2:]) * torch.finfo(v.dtype).eps)
 
 
 def _coo_tensors(st: SparseTensor, device: torch.device):

@@ -107,7 +107,7 @@ class AutotuneReport:
     skipped: dict[str, str]               # backend -> reason (error/prune text)
     warmup: int
     reps: int
-    source: str = "measured"              # "measured" | "persisted"
+    source: str = "measured"              # "measured" | "persisted" | "cached"
     n_probes: int = 0                     # timing probes charged this build
                                           # (candidates that raised are not)
     prior_order: list[str] | None = None  # cost-model ranking, when consulted
@@ -136,6 +136,33 @@ class AutotuneReport:
             "elided": self.n_elided,
             "persisted": (len(self.winners)
                           if self.source == "persisted" else 0),
+        }
+
+    def to_dict(self) -> dict:
+        """JSON-safe view of the full report: winners, per-candidate
+        timings/predictions/errors, skip reasons, and the probe-provenance
+        breakdown.  `chip_smoke.py` prints it per bucket; mode keys stay
+        ints (json.dumps stringifies them)."""
+        return {
+            "chosen": self.chosen,
+            "winners": {int(m): n for m, n in self.winners.items()},
+            "timings": {n: {int(m): float(s) for m, s in per.items()}
+                        for n, per in self.timings.items()},
+            "predicted": {n: {int(m): float(s) for m, s in per.items()}
+                          for n, per in self.predicted.items()},
+            "errors": {n: {int(m): float(e) for m, e in per.items()}
+                       for n, per in self.errors.items()},
+            "candidates": list(self.candidates),
+            "skipped": dict(self.skipped),
+            "warmup": self.warmup,
+            "reps": self.reps,
+            "source": self.source,
+            "probes": self.probe_breakdown(),
+            "prior_order": (list(self.prior_order)
+                            if self.prior_order is not None else None),
+            "prior_name": self.prior_name,
+            "store_path": self.store_path,
+            "accuracy_budget": self.accuracy_budget,
         }
 
     def summary(self) -> str:

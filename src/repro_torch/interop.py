@@ -11,12 +11,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .batch.bucketing import PaddedBatch
 from .core.chunking import ChunkedTensor
 from .core.sptensor import SparseTensor
 from .device import resolve_device
 
-__all__ = ["chunked_from_reference", "factors_from_reference", "qfactors_from_reference",
-           "tensor_from_reference"]
+__all__ = ["chunked_from_reference", "factors_from_reference", "padded_batch_from_reference",
+           "qfactors_from_reference", "tensor_from_reference"]
 
 
 def tensor_from_reference(st) -> SparseTensor:
@@ -36,6 +37,17 @@ def chunked_from_reference(ct) -> ChunkedTensor:
         tuple(int(s) for s in ct.chunk_shape),
         tuple(int(d) for d in ct.tensor_shape),
     )
+
+
+def padded_batch_from_reference(pb) -> PaddedBatch:
+    """A `repro.batch.PaddedBatch` as the port's PaddedBatch."""
+    return PaddedBatch(
+        dims=tuple(int(d) for d in pb.dims), band=int(pb.band),
+        coords=np.asarray(pb.coords, dtype=np.int32),
+        values=np.asarray(pb.values, dtype=np.float32),
+        mask=np.asarray(pb.mask, dtype=np.float32),
+        shapes=tuple(tuple(int(d) for d in s) for s in pb.shapes),
+        nnz=tuple(int(k) for k in pb.nnz))
 
 
 def factors_from_reference(factors, lam, device: str | torch.device | None = None):

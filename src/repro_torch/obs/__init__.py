@@ -1,20 +1,27 @@
-"""repro_torch.obs — span tracing for the port's tune/decompose stack (the
-port's own copy of `repro.obs.tracing` and `repro.obs.export`).
+"""repro_torch.obs — tracing + metrics for the port's tune/decompose/serve
+stack (the port's own copy of `repro.obs`).
 
 - `tracing` — a process-global, thread-aware span tracer, apart from the
   JAX package's, that is a true no-op when disabled (one attribute check
   on the hot path).  Enable with `enable_tracing()`, the `capture()`
   scope, or ``REPRO_TRACE=1`` / ``REPRO_TRACE_PATH=trace.jsonl`` in the
   environment.
+- `metrics` — counters/gauges/histograms; histograms use fixed log-spaced
+  buckets so p50/p95/p99 come without storing samples, and registry
+  snapshots are consistent cuts.
 - `export` — trace JSONL read/write (the reference's schema), Chrome
-  trace-event JSON for Perfetto, and the summary tables.
+  trace-event JSON for Perfetto, and the tables behind
+  ``python -m repro_torch.obs summarize``.
 
 The instrumented surface: `autotune_engine` emits per-candidate
 `autotune.probe` spans and an `autotune.decision` span; `cp_als` emits
 `cp_als.decompose`, `cp_als.iter`, `cp_als.mode` and `cp_als.fit` spans
 (the iteration span carries the same measurement `CPResult.iter_times`
-reports).  The metrics registry and the summarize command wait for the
-serve stack.
+reports); `cp_als_batched` emits `cp_als_batched.bucket`/`.iter` spans and
+`autotune_bucket` an `autotune.bucket` span; `DecomposeService` emits
+`serve.batch`, `serve.request` and `serve.queue_wait` spans and records
+queue-wait/dispatch/request-latency histograms in its own
+`MetricsRegistry` (p50/p99 surfaced in `ServeStats`).
 """
 from __future__ import annotations
 
@@ -27,6 +34,14 @@ from .export import (
     validate_spans,
     write_chrome_trace,
     write_jsonl,
+)
+from .metrics import (
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    default_histogram_bounds,
+    default_registry,
 )
 from .tracing import (
     TRACE_ENV,
@@ -46,9 +61,15 @@ from .tracing import (
 __all__ = [
     "TRACE_ENV",
     "TRACE_PATH_ENV",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
     "SpanRecord",
     "Tracer",
     "capture",
+    "default_histogram_bounds",
+    "default_registry",
     "disable_tracing",
     "enable_tracing",
     "get_tracer",
