@@ -36,6 +36,17 @@ Phases, each fatal on failure:
      on the card (quant_error within 1e-4: its float reference sums with
      atomics); then, on TABLE1 nell2 (int7) and
      lbnl (int15-12), the card must follow the CPU path;
+     4d. (run after phase 4, before 4f) the `distributed` engine at (a)
+     through `build_engine`, `psum` and `psum_scatter`, on the default
+     (1, 1) mesh of a one-rank NCCL group (the host has one card; NCCL
+     refuses two ranks on one device), on the plan cache's resident arrays
+     (checked: no second copy): every mode within 1e-5 of Σ|terms| of the
+     `kernel` engine (`index_add_` sums in no fixed order), timed with CUDA
+     events in turns against the kernel op; cp_als for n_iters (n_iters × 3
+     float-kernel launches, fit within 1e-5 and factors within 1e-3 of
+     phase 4's `kernel` run), the NCCL version, the collectives' log through
+     `roofline.collective_bytes` (0 wire bytes at group size 1) and the
+     peak memory;
      4g. the paper's Fig. 6 claim (int15-12 tracks float, int7 stays
      bounded) on tests/test_cpals.py's planted low-rank tensor, and a
      planted rank-3 cube of side 180 (every cell present) where the fit
@@ -74,6 +85,12 @@ Phases, each fatal on failure:
      elided tune at (a) (every winner a float-kernel backend); and an
      accuracy budget of 1e-2 over kernel, fixed:int7 and fixed:int15-12
      (int7 rejected over budget, the fixed kernel launched by the probes);
+     4w. (after 4a) the offline sweep: benchmarks/sweep_ci.toml (read with
+     the port's `load_config`) plus the `kernel` candidate, swept into a
+     fresh store on the card (every cell measured), swept again (0 probes,
+     every cell complete), and its Pareto report against
+     `roofline.H100_SXM5` (a non-empty front, every peak_fraction in [0,
+     1.05]); cells, probes, wall time and winners printed;
      4s. the serving path, `DecomposeService` over `cp_als_batched` (plain
      tensor ops: it launches neither kernel, which is checked): benchmarks/
      serve_bench.py's load (three shape/nnz families, 4096 requests from
@@ -123,6 +140,7 @@ A member's mix-up or a wrong padding moves them by orders of magnitude more.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -136,6 +154,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -148,13 +167,15 @@ from repro_torch.batch import (  # noqa: E402
     pad_bucket,
 )
 from repro_torch.batch.cpals import _init_batched  # noqa: E402
-from repro_torch.engine import PlanCache, default_plan_cache  # noqa: E402
+from repro_torch.engine import PlanCache, TuningStore, default_plan_cache  # noqa: E402
 from repro_torch.core.mttkrp import _alto_decode  # noqa: E402
 from repro_torch.engine.calibrate import MIN_OBSERVATIONS  # noqa: E402
 from repro_torch.obs import capture  # noqa: E402
 from repro_torch.formats import MAX_KEY_BITS  # noqa: E402
 from repro_torch.kernels import _build, mttkrp_fixed_kernel, mttkrp_kernel, tiles  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.launch import mesh_axes  # noqa: E402
+from repro_torch.roofline import H100_SXM5, collective_bytes  # noqa: E402
 
 RANK = 10
 N_ITERS = 5
@@ -167,6 +188,7 @@ ABS_FLOOR = 1e-6
 FIT_ATOL = 1e-5                    # per iteration, kernel vs plain engine
 FACTOR_ATOL = 1e-3                 # final L∞-normalized factors, kernel vs plain engine
 SMALL_ATOL = 1e-6                  # fit and diff on TABLE1 nell2, card vs CPU (as the CPU tests)
+DIST_REL_TOL = 1e-5                # distributed vs kernel engine, of Σ|terms| per entry (phase 4d)
 # quant_error of the fixed engine against the plain op's, both on the card:
 # its float COO reference sums with float atomics (`index_add_`) in an order
 # that changes from run to run, so it is held to the 1e-4 of the float
@@ -1079,6 +1101,127 @@ def bucket_reports(results) -> dict:
     return {id(r.tune_report): r.tune_report for r in results}
 
 
+def distributed_checks(st, plan, kernel_run, device) -> int:
+    """Phase 4d: the `distributed` engine at case (a) on a (1, 1) mesh of a
+    one-rank NCCL group (the card's host has one card, and NCCL refuses two
+    ranks on one device), reusing the plan cache's layouts.  Returns the
+    float kernel's launches in its cp_als runs."""
+    chunking = dict(chunk_shape=plan.chunk_shape, capacity=plan.capacity)
+    cs = plan.chunk_shape
+    dev = default_plan_cache.device_arrays(st, cs, plan.capacity, device)
+    kern = rt.build_engine(st, "kernel", RANK, **chunking)
+    factors = rt.init_factors(st.shape, RANK, seed=0, device=device)
+    abs_factors = [f.abs() for f in factors]
+    tc, cr, vals, nnz = (dev["task_chunk"], dev["coords_rel"], dev["values"],
+                         dev["nnz_per_task"])
+    launches = 0
+    try:
+        for reduce in ("psum", "psum_scatter"):
+            t0 = time.perf_counter()
+            eng = rt.build_engine(st, "distributed", RANK, reduce=reduce, **chunking)
+            t_build = time.perf_counter() - t0
+            dmt = eng.fn
+            if dist.get_backend() != "nccl" or mesh_axes(dmt.mesh) != {"data": 1, "model": 1}:
+                fail(f"phase 4d: mesh {mesh_axes(dmt.mesh)} on {dist.get_backend()}, expected "
+                     "(1, 1) on nccl")
+            if dmt.arrays["values"].data_ptr() != vals.data_ptr():
+                fail("phase 4d: the distributed engine moved a second copy of the tensor")
+            log(f"[4d] reduce={reduce}: built in {t_build:.2f}s, nccl "
+                f"{'.'.join(map(str, torch.cuda.nccl.version()))}, mesh {mesh_axes(dmt.mesh)}")
+            for mode in range(st.ndim):
+                got, want = eng(factors, mode), kern(factors, mode)
+                terms = rt.mttkrp_chunked(abs_factors, tc, cr, vals.abs(), mode=mode,
+                                          chunk_shape=cs, out_dim=st.shape[mode])
+                torch.cuda.synchronize()
+                err = (got - want).abs()
+                bad = int((err > DIST_REL_TOL * terms).sum())
+                k1, d1, d2, k2 = (
+                    time_ms(lambda mode=mode: rt.mttkrp_kernel_op(
+                        factors, tc, cr, vals, mode=mode, chunk_shape=cs,
+                        out_dim=st.shape[mode], nnz_per_task=nnz), 10),
+                    time_ms(lambda mode=mode: eng(factors, mode), 10),
+                    time_ms(lambda mode=mode: eng(factors, mode), 10),
+                    time_ms(lambda mode=mode: rt.mttkrp_kernel_op(
+                        factors, tc, cr, vals, mode=mode, chunk_shape=cs,
+                        out_dim=st.shape[mode], nnz_per_task=nnz), 10))
+                log(f"[4d]   mode {mode}: max|dist - kernel|={float(err.max()):.3e} "
+                    f"outside {DIST_REL_TOL}·Σ|terms|={bad}; ms distributed {d1:.3f} / {d2:.3f}, "
+                    f"kernel op {k1:.3f} / {k2:.3f}")
+                if bad or tuple(got.shape) != (st.shape[mode], RANK):
+                    fail(f"phase 4d {reduce} mode {mode}: the distributed engine left `kernel`")
+                del got, want, terms, err
+            dmt.log.clear()
+            mttkrp_kernel.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            res = rt.cp_als(st, RANK, n_iters=N_ITERS, engine=eng, seed=0)
+            n = mttkrp_kernel.launches
+            peak = torch.cuda.max_memory_allocated()
+            wire = collective_bytes(dmt.log)
+            fit_gap = max(abs(a - b) for a, b in zip(res.fit_history, kernel_run.fit_history,
+                                                      strict=True))
+            factor_gap = max(float((a - b).abs().max())
+                             for a, b in zip(res.factors, kernel_run.factors, strict=True))
+            log(f"[4d]   cp_als reduce={reduce}: kernel launches={n}, fit_history="
+                f"{res.fit_history}, iter_times={res.iter_times}, |fit - kernel fit| max "
+                f"{fit_gap:.3e} (tolerance {FIT_ATOL}), |factors - kernel's| max "
+                f"{factor_gap:.3e} (tolerance {FACTOR_ATOL}), peak {peak / 2**30:.3f} GiB")
+            log(f"[4d]   collectives: {json.dumps(wire)}")
+            if n != N_ITERS * st.ndim:
+                fail(f"phase 4d: the float kernel launched {n} times, expected "
+                     f"{N_ITERS * st.ndim}")
+            if fit_gap > FIT_ATOL or factor_gap > FACTOR_ATOL:
+                fail(f"phase 4d {reduce}: cp_als left phase 4's kernel run")
+            if wire["count"] != len(dmt.log) or wire["count"] == 0 or wire["total_wire_bytes"]:
+                fail(f"phase 4d: collectives {wire} (expected some, 0 wire bytes at group size 1)")
+            launches += n
+            del eng, dmt, res
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return launches
+
+
+def sweep_checks(device) -> None:
+    """Phase 4w: the CI grid of benchmarks/sweep_ci.toml plus the `kernel`
+    candidate swept into a fresh store on the card, swept again (0
+    probes), and its Pareto report against the card's roofline."""
+    ci = rt.load_config(ROOT / "benchmarks" / "sweep_ci.toml")
+    spec = dataclasses.asdict(ci)
+    spec["candidates"] = [*ci.candidates, "kernel"]
+    spec["capacities"] = [c or 0 for c in ci.capacities]  # TOML's "decider" sentinel
+    cfg = rt.SweepConfig.from_dict(spec)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sweep_"))
+    try:
+        store_path = tmp / "sweep.json"
+        t0 = time.perf_counter()
+        first = rt.run_sweep(cfg, store_path)
+        t_first = time.perf_counter() - t0
+        for o in first.outcomes:
+            log(f"[4w] {o.cell}: {o.status} probes={o.n_probes} winners={o.winners} "
+                f"{o.seconds:.2f}s{' ' + o.error if o.error else ''}")
+        log(f"[4w] sweep of {len(first.outcomes)} cells over {list(cfg.candidates)}: "
+            f"{first.n_probes} probes in {t_first:.2f}s")
+        if first.count("measured") != len(cfg.cells()):
+            fail(f"phase 4w: cells {first.to_json()['counts']}, expected every one measured")
+        t0 = time.perf_counter()
+        second = rt.run_sweep(cfg, store_path)
+        log(f"[4w] resumed sweep: {second.n_probes} probes, {second.to_json()['counts']} in "
+            f"{time.perf_counter() - t0:.2f}s")
+        if second.n_probes or second.count("complete") != len(cfg.cells()):
+            fail("phase 4w: the resumed sweep measured again")
+        report = rt.pareto_report(TuningStore(store_path, nnz_tol=0.0), hw=H100_SXM5)
+        fractions = [p["peak_fraction"] for p in report["points"]]
+        log(f"[4w] pareto: {report['n_points']} points, {report['n_pareto']} on the front, "
+            f"peak_fraction {min(fractions):.3e}..{max(fractions):.3e} against {report['hw']}")
+        for p in report["front"]:
+            log(f"[4w]   front {p['cell']} {p['candidate']}: {p['time_s'] * 1e3:.3f} ms, "
+                f"rel_error {p['rel_error']:.3e}, index {p['index_bytes']:.0f} B")
+        if not report["front"] or not all(0.0 <= f <= 1.05 for f in fractions):
+            fail("phase 4w: empty Pareto front or a peak_fraction outside [0, 1.05]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def serve_checks(device) -> None:
     """Phase 4s: DecomposeService on the card (see the module docstring)."""
     t0 = time.perf_counter()
@@ -1332,6 +1475,13 @@ def main() -> int:
     if small_gap > SMALL_ATOL:
         fail("the kernel engine on the card left the CPU path on TABLE1 nell2")
 
+    # 4d. The distributed engine at (a) on a one-rank NCCL mesh.
+    t0 = time.perf_counter()
+    dist_launches = distributed_checks(st_a, plan_a, kernel_run, device)
+    log(f"[4d] phase took {time.perf_counter() - t0:.1f}s")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     # 4f. Fixed-point path: int7 on NELL-2 (the paper's mode-3 format),
     # int15-12 on LBNL (its mode-5 format).
     res_fa, launches_fa = fixed_main_run("a (NELL-2)", st_a, plan_a, "int7")
@@ -1461,6 +1611,14 @@ def main() -> int:
     auto_launches = autotune_checks(st_a, plan_a, formats_a, kernel_run, role_ms, device)
     log(f"[4a] phase took {time.perf_counter() - t0:.1f}s")
 
+    # 4w. The offline sweep on the card (its probes launch both kernels).
+    mttkrp_kernel.launches = 0
+    mttkrp_fixed_kernel.launches = 0
+    t0 = time.perf_counter()
+    sweep_checks(device)
+    log(f"[4w] phase took {time.perf_counter() - t0:.1f}s; probes launched the float kernel "
+        f"{mttkrp_kernel.launches} times, the fixed one {mttkrp_fixed_kernel.launches} times")
+
     # 4s and 4b. The serving path: it launches neither kernel.
     mttkrp_kernel.launches = 0
     mttkrp_fixed_kernel.launches = 0
@@ -1483,8 +1641,9 @@ def main() -> int:
 
     # 6. Kernels line (ms/plain_ms/bound_ms: the 3 launches of one CP-ALS
     # iteration at case (a)'s shapes, summed over the modes; launches: the
-    # main paths' runs, the float kernel's through `kernel`, `hetero` and the
-    # tuned `auto` engine, the fixed kernel's over both of its runs).
+    # main paths' runs, the float kernel's through `kernel`, `distributed`,
+    # `hetero` and the tuned `auto` engine, the fixed kernel's over both of
+    # its runs).
     def entry(kind, rows, n_launches, err):
         return {**KERNELS[kind], "route": "cuda", "launches": n_launches, "max_abs_err": err,
                 "ms": sum(r["ms"] for r in rows),
@@ -1493,7 +1652,8 @@ def main() -> int:
                 "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
                              else "operations"),
                 "library_ms": None}
-    print(json.dumps({"kernels": [entry("float", modes, launches + hetero_launches + auto_launches,
+    print(json.dumps({"kernels": [entry("float", modes,
+                                        launches + dist_launches + hetero_launches + auto_launches,
                                         worst),
                                   entry("fixed", fixed_modes, fixed_launches,
                                         float(worst_fixed))]}), flush=True)

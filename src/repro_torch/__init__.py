@@ -8,8 +8,12 @@ paper's heterogeneous dense/sparse split (`hetero`), the autotuner
 prior) that chooses among them, and the serving path: batched many-tensor
 CP-ALS (`cp_als_batched`, `repro_torch.batch`), the coalescing
 `DecomposeService` over it (`repro_torch.serve`) and its `MetricsRegistry`
-(`repro_torch.obs`).  It imports neither JAX nor `repro`; its host-side numpy code
-produces the same arrays as the reference from the same seeds.  Entry
+(`repro_torch.obs`), the `distributed` backend over a `torch.distributed`
+mesh (`repro_torch.launch`, `DistributedMTTKRP`), and the offline sweep
+that fills a tuning store ahead of time (`repro_torch.sweep`, with the
+card's roofline in `repro_torch.roofline`).  It imports neither JAX nor
+`repro`; its host-side numpy code produces the same arrays as the
+reference from the same seeds.  Entry
 points run on the CUDA card unless the caller passes ``device="cpu"``;
 importing the package builds no kernel.
 
@@ -41,6 +45,7 @@ from .core import (
     TABLE1,
     ChunkedTensor,
     CPResult,
+    DistributedMTTKRP,
     HeteroSplit,
     PartitionPlan,
     QFormat,
@@ -56,6 +61,7 @@ from .core import (
     decide_partition,
     densify_tasks,
     dequantize_output,
+    distributed_mttkrp_fn,
     fit_value,
     gather_factor_blocks,
     hetero_device_arrays,
@@ -112,6 +118,7 @@ from .formats import (
 from .obs import MetricsRegistry, enable_tracing, get_tracer, span, traced
 from .batch import cp_als_batched
 from .serve import DecomposeService, ServeStats
+from .sweep import SweepConfig, load_config, pareto_report, run_sweep
 from .interop import (
     chunked_from_reference,
     factors_from_reference,
@@ -144,6 +151,7 @@ __all__ = [
     "CSFModeTree",
     "ChunkedTensor",
     "DecomposeService",
+    "DistributedMTTKRP",
     "Engine",
     "EngineContext",
     "FormatCache",
@@ -156,6 +164,7 @@ __all__ = [
     "QFormat",
     "ServeStats",
     "SparseTensor",
+    "SweepConfig",
     "TunePolicy",
     "TuningStore",
     "accumulator_safe_nnz",
@@ -180,6 +189,7 @@ __all__ = [
     "default_format_cache",
     "densify_tasks",
     "dequantize_output",
+    "distributed_mttkrp_fn",
     "eligible_backends",
     "enable_tracing",
     "factors_from_reference",
@@ -190,6 +200,7 @@ __all__ = [
     "get_tracer",
     "hetero_device_arrays",
     "init_factors",
+    "load_config",
     "mttkrp_alto",
     "mttkrp_chunked",
     "mttkrp_chunked_fixed",
@@ -203,6 +214,7 @@ __all__ = [
     "mttkrp_local",
     "pad_factor",
     "padded_batch_from_reference",
+    "pareto_report",
     "parse_candidate",
     "preset_error_bound",
     "qfactors_from_reference",
@@ -213,6 +225,7 @@ __all__ = [
     "registered_backends",
     "registered_formats",
     "replication_stats",
+    "run_sweep",
     "span",
     "split_tasks",
     "table1_tensor",

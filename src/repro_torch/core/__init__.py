@@ -1,11 +1,13 @@
 """PRISM core in PyTorch: the chunked sparse tensor format, the partition
 decider, float and fixed-point spMTTKRP, the CSF/ALTO ops and baselines,
-the Qm.n formats, lock-free emulation, heterogeneous execution and CP-ALS
+the Qm.n formats, lock-free emulation, heterogeneous execution, the
+distributed MTTKRP over a `torch.distributed` mesh and CP-ALS
 (`cp_als_batched`, batched many-tensor CP-ALS, resolves lazily from
 `repro_torch.batch`)."""
 from .baselines import alto_order
 from .chunking import ChunkedTensor, chunk_tensor, clamp_capacity, replication_stats
 from .cpals import CPResult, avg_abs_diff, cp_als, fit_value, init_factors, reconstruct_nnz
+from .distributed import DistributedMTTKRP, distributed_mttkrp_fn, shard_chunked
 from .hetero import (
     MAX_DENSE_VOLUME,
     HeteroSplit,
@@ -51,6 +53,7 @@ __all__ = [
     "TABLE1",
     "CPResult",
     "ChunkedTensor",
+    "DistributedMTTKRP",
     "HeteroSplit",
     "PartitionPlan",
     "QFormat",
@@ -66,6 +69,7 @@ __all__ = [
     "decide_partition",
     "densify_tasks",
     "dequantize_output",
+    "distributed_mttkrp_fn",
     "fit_value",
     "gather_factor_blocks",
     "hetero_device_arrays",
@@ -81,6 +85,7 @@ __all__ = [
     "random_tensor",
     "reconstruct_nnz",
     "replication_stats",
+    "shard_chunked",
     "split_tasks",
     "table1_tensor",
     "value_qformat",

@@ -51,6 +51,16 @@ for a slow candidate: a `KernelError` (a CUDA kernel that cannot be built,
 loaded or launched), and on a CUDA context any exception from a candidate
 whose backend launches a hand-written kernel (`kernel`, `hetero`,
 `fixed:<preset>`; `BackendSpec.launches_kernel`).
+
+Under a default process group of more than one rank (the `distributed`
+backend's SPMD setting) every rank tunes the same workload and must take
+the same decisions, or one rank waits in a collective that the others
+never call; the reference's single controller gets this for free.  So the
+ranks agree on whether the store holds the workload, and each probe's
+seconds and error are the maximum over the ranks (`all_reduce` MAX: an
+SPMD step runs at its slowest rank's pace) before any elision, rejection
+or winner is taken from them; a candidate that fails on any rank is
+skipped, or raised, on every rank.  Only rank 0 saves the store.
 """
 from __future__ import annotations
 
@@ -60,12 +70,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.cpals import init_factors
 from ..core.mttkrp import mttkrp_coo
 from ..core.qformat import FIXED_PRESETS, cross_mode_error_bound, value_qformat
 from ..formats import registered_formats
 from ..kernels import KernelError
+from ..launch.mesh import world_rank, world_size
 from ..obs.tracing import record_span, span, tracing_enabled
 from .calibrate import CalibratedPrior, CalibrationError
 from .costmodel import CostModelPrior, WorkloadStats, default_prior
@@ -227,6 +239,19 @@ def _time_backend(name: str, engine, factors, mode: int, *,
     """Probe seam: identical to `_time_call` but carries the backend name so
     tests can substitute deterministic per-backend timings."""
     return _time_call(engine, factors, mode, warmup=warmup, reps=reps)
+
+
+def _agree(values: list[float]) -> list[float]:
+    """The element-wise maximum of `values` over the ranks of the default
+    process group, so that every rank decides from the same numbers
+    (unchanged without a group of more than one rank)."""
+    if world_size() == 1:
+        return values
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.tensor(values, dtype=torch.float64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.tolist()
 
 
 def _is_fault(exc: Exception, name: str, ctx: EngineContext) -> bool:
@@ -418,7 +443,7 @@ def autotune_engine(
     max_probes, elide = policy.max_probes, policy.elide
     elide_margin = policy.elide_margin
     accuracy_budget = policy.accuracy_budget
-    n_devices = (torch.cuda.device_count() if ctx.device.type == "cuda" else 1)
+    n_devices = world_size()
     if candidates is None:
         candidates = [n for n in eligible_backends(lossless_only=True,
                                                    n_devices=n_devices)
@@ -464,7 +489,8 @@ def autotune_engine(
         # budget serves (its winners' measured errors satisfy this request
         # too); anything else is invisible and the workload re-probes.
         entry = tuning_store.lookup(key, budget=accuracy_budget)
-        if entry is not None:
+        # Every rank goes warm, or none does.
+        if _agree([float(entry is None)]) == [0.0]:
             warm = _engine_from_entry(ctx, entry, candidates, modes,
                                       tuning_store)
             if warm is not None:
@@ -590,24 +616,36 @@ def autotune_engine(
         way (the probes already spent are likewise not charged)."""
         probe_sp = span("autotune.probe", candidate=name, mode=m,
                         provenance="measured")
+        failure, t, err = None, 0.0, None
         try:
             # The span covers build + warmup + reps + the error probe;
-            # `seconds` is the best single measured rep.
+            # `seconds` is this rank's best single measured rep.
             with probe_sp:
                 if name not in built:
                     built[name] = build_candidate(name, ctx)
                 t = _time_backend(name, built[name], factors, m,
                                   warmup=warmup, reps=reps)
-                err = None
                 if accuracy_budget is not None and name in lossy:
                     err = _measure_error(name, m)
                 probe_sp.set(seconds=t)
                 if err is not None:
                     probe_sp.set(rel_error=err)
         except Exception as e:  # any other failure disqualifies
-            if _is_fault(e, name, ctx):
-                raise  # a broken CUDA kernel is a fault, not a slow candidate
-            skipped[name] = f"{type(e).__name__}: {e}"
+            failure = e
+        # A fault or failure on any rank is one on every rank, and the
+        # slowest rank's time and the worst error count.
+        fault, failed, t, err = _agree([
+            float(failure is not None and _is_fault(failure, name, ctx)),
+            float(failure is not None), t, -1.0 if err is None else err])
+        err = None if err < 0 else err
+        if fault:
+            # A broken CUDA kernel is a fault, not a slow candidate.
+            if failure is not None:
+                raise failure
+            raise RuntimeError(f"autotune: candidate {name!r} faulted on another rank")
+        if failed:
+            skipped[name] = (f"{type(failure).__name__}: {failure}" if failure is not None
+                             else "failed on another rank")
             for book in (built, timings, predicted, probe_counts, errors):
                 book.pop(name, None)
             return False
@@ -735,13 +773,15 @@ def autotune_engine(
                     chosen=report.chosen, probes=n_probes, elided=n_elided)
 
     if tuning_store is not None and key is not None:
-        # An unwritable store degrades to per-process tuning.
+        # An unwritable store degrades to per-process tuning.  Every rank
+        # records the entry; only rank 0 writes the file.
         with contextlib.suppress(OSError):
             tuning_store.record(key, winners, timings, overall=overall,
                                 warmup=warmup, reps=reps,
                                 budget=accuracy_budget, errors=errors,
                                 format_stats=(fmt_stats.to_json()
-                                              if fmt_stats else None))
+                                              if fmt_stats else None),
+                                save=world_rank() == 0)
 
     # Drop losing engines so their device-resident data (reordered copies,
     # densified blocks, ...) doesn't stay alive for the whole CP-ALS run.

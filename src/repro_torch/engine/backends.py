@@ -15,6 +15,12 @@
            kernel; on a CPU device the kernel wrapper takes its plain version
   hetero   dense/sparse split of the chunk tasks (paper §IV-D): dense tasks
            by one float32 einsum, sparse ones through the float CUDA kernel
+  distributed
+           PRISM chunked format over a (data, model) mesh of
+           `torch.distributed` ranks (paper §IV-B): factor columns split on
+           `model`, tasks on `data`, each rank's shard through the float
+           CUDA kernel (its plain version on the CPU); needs 2 ranks to be
+           eligible for the autotuner
 
 `lockfree_mode` (the paper's lock-free lost updates, emulated by
 `core.lockfree.wave_collision_mask`) is read by `chunked` and `fixed`, as
@@ -31,9 +37,11 @@ from __future__ import annotations
 import torch
 
 from ..core import baselines, hetero, lockfree, mttkrp
+from ..core.distributed import DistributedMTTKRP
 from ..core.qformat import FIXED_PRESETS, value_qformat
 from ..formats.alto import MAX_KEY_BITS, alto_key_bits
 from ..kernels import ops as kops
+from ..launch.mesh import make_local_mesh, mesh_axes, world_size
 from .registry import EngineContext, register_backend
 
 __all__ = []  # backends are reached through the registry, not by import
@@ -172,3 +180,21 @@ def _build_hetero(ctx: EngineContext):
         return hetero.mttkrp_hetero(factors, arrays, mode=mode, chunk_shape=cs,
                                     out_dim=shape[mode])
     return engine
+
+
+@register_backend("distributed", needs_chunking=True, min_devices=2, launches_kernel=True,
+                  description="torch.distributed mesh: rank partitioning on `model`, tasks "
+                              "on `data`, each shard through the CUDA kernel")
+def _build_distributed(ctx: EngineContext):
+    # Default to a real model axis when there are ranks for it, so rank
+    # partitioning (the paper's favored, replication-free partitioning) is
+    # exercised, not just the data/task axis.
+    mesh = (ctx.mesh if ctx.mesh is not None
+            else make_local_mesh(n_model=2 if world_size() >= 2 else 1, device=ctx.device))
+    if mesh.device_type != ctx.device.type:
+        raise ValueError(f"the mesh is over {mesh.device_type} ranks; the engine's device "
+                         f"is {ctx.device}")
+    # At one data rank the task block is the whole tensor: take the plan
+    # cache's resident arrays rather than move a second copy to the card.
+    arrays = ctx.device_arrays() if mesh_axes(mesh)["data"] == 1 else None
+    return DistributedMTTKRP(mesh, ctx.chunked(), ctx.rank, reduce=ctx.reduce, arrays=arrays)

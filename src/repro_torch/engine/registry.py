@@ -16,6 +16,7 @@ from ..core.chunking import ChunkedTensor
 from ..core.sptensor import SparseTensor
 from ..device import resolve_device
 from ..formats.convert import FormatCache, default_format_cache
+from ..launch.mesh import world_size
 from .plan import PlanCache, default_plan_cache
 
 __all__ = [
@@ -47,8 +48,9 @@ class BackendSpec:
                            (`FIXED_PRESETS` names); ``"name:preset"`` pins one,
                            and each becomes an autotune candidate under an
                            accuracy budget.
-    min_devices          — minimum device count to be eligible (CUDA cards,
-                           or 1 for a CPU context).
+    min_devices          — minimum device count to be eligible: the ranks of
+                           the default process group, one card (or CPU
+                           process) each, or 1 without a group.
     launches_kernel      — runs a hand-written CUDA kernel on a CUDA
                            context, so the autotuner re-raises its failures
                            there instead of skipping it as a slow candidate.
@@ -138,9 +140,11 @@ def build_candidate(candidate: str, ctx: EngineContext):
 
 
 def _n_devices(n_devices: int | None) -> int:
-    """`n_devices`, or the CUDA cards this process sees (1 without a card:
-    a CPU context is one device)."""
-    return max(1, torch.cuda.device_count()) if n_devices is None else n_devices
+    """`n_devices`, or the ranks of the default process group (1 without
+    one).  Only ranks of a group can be members of a mesh, so a process that
+    sees several cards still counts as one device; the reference counts the
+    devices of its one process."""
+    return world_size() if n_devices is None else n_devices
 
 
 def preset_candidates(*, n_devices: int | None = None) -> list[str]:
@@ -157,7 +161,7 @@ def preset_candidates(*, n_devices: int | None = None) -> list[str]:
 def eligible_backends(*, n_devices: int | None = None,
                       lossless_only: bool = False) -> list[str]:
     """Backends whose device requirements `n_devices` satisfy (None: the
-    CUDA cards this process sees, or 1), sorted by name."""
+    ranks of the default process group, or 1), sorted by name."""
     n_devices = _n_devices(n_devices)
     return [s.name
             for s in sorted(_REGISTRY.values(), key=lambda s: s.name)
@@ -193,7 +197,9 @@ class EngineContext:
     updates in the backends that read it (`chunked`, `fixed`).
     `dense_fraction` overrides the `hetero` backend's cost-model split with a
     static densest-first fraction of tasks; the `csf` and `alto` backends
-    take their layouts from `formats`.
+    take their layouts from `formats`.  `mesh` (a (data, model)
+    `DeviceMesh`, None → `make_local_mesh`) and `reduce` ("psum" or
+    "psum_scatter") configure the `distributed` backend.
     """
 
     st: SparseTensor
@@ -205,6 +211,8 @@ class EngineContext:
     lockfree_mode: bool = False
     device: torch.device | str | None = None
     dense_fraction: float | None = None
+    mesh: object | None = None      # distributed backend; None → local mesh
+    reduce: str = "psum"            # distributed reduction strategy
     plans: PlanCache | None = None  # None → the process-wide default_plan_cache
     formats: FormatCache | None = None  # None → the process-wide default_format_cache
 
@@ -246,13 +254,13 @@ class Engine:
     def __init__(self, name: str, fn: Callable, *, spec: BackendSpec | None = None,
                  context: EngineContext | None = None, report=None):
         self.name = name
-        self._fn = fn
+        self.fn = fn  # what the backend's build returned (`distributed`: a DistributedMTTKRP)
         self.spec = spec
         self.context = context
         self.report = report
 
     def __call__(self, factors, mode: int):
-        return self._fn(factors, mode)
+        return self.fn(factors, mode)
 
     def __repr__(self) -> str:
         return f"Engine({self.name!r})"

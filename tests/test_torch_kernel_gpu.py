@@ -388,3 +388,133 @@ def test_kernels_on_runs_of_equal_output_rows(cuda, kind, rank):
         got, want, terms = _local_pair(kind, factors, ct, dev, mode,
                                        nnz_per_task=dev["nnz_per_task"])
         _assert_pair(kind, got, want, terms)
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A (1, 1) mesh on a one-rank NCCL group, destroyed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_local_mesh
+    mesh = make_local_mesh()
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("reduce", ["psum", "psum_scatter"])
+def test_distributed_engine_on_one_nccl_rank_matches_kernel(nccl_mesh, reduce):
+    """The `distributed` engine on a one-rank NCCL mesh launches the float
+    kernel once per mode on the plan cache's resident arrays, and agrees
+    with the `kernel` engine within 1e-5 of the sum of |terms| per entry
+    (both sum with float atomics, in orders that change from run to run)."""
+    import torch.distributed as dist
+    assert dist.get_backend() == "nccl"
+    st = rt.random_tensor((42, 30, 36), 900, seed=5)
+    kw = dict(chunk_shape=(6, 6, 6), capacity=16, plans=rt.PlanCache())
+    eng = rt.build_engine(st, "distributed", 8, mesh=nccl_mesh, reduce=reduce, **kw)
+    kern = rt.build_engine(st, "kernel", 8, **kw)
+    assert (eng.fn.arrays["values"].data_ptr()
+            == kern.context.device_arrays()["values"].data_ptr())
+    factors = rt.init_factors(st.shape, 8, seed=0, device="cuda")
+    coords = torch.from_numpy(st.coords).cuda()
+    abs_values = torch.from_numpy(np.abs(st.values)).cuda()
+    for mode in range(3):
+        before = mttkrp_kernel.launches
+        got = eng(factors, mode)
+        assert mttkrp_kernel.launches == before + 1
+        want = kern(factors, mode)
+        terms = rt.mttkrp_coo([f.abs() for f in factors], coords, abs_values, mode=mode,
+                              out_dim=st.shape[mode])
+        torch.cuda.synchronize()
+        assert got.shape == (st.shape[mode], 8) and got.is_cuda
+        assert bool(((got - want).abs() <= 1e-5 * terms).all())
+    assert [r["group"] for r in eng.fn.log] == [1] * len(eng.fn.log)
+
+
+_RANKS_WORKER = """
+import json, sys
+import torch, torch.distributed as dist
+rank, world, init, out, backend = sys.argv[1:6]
+rank, world = int(rank), int(world)
+device = "cuda" if backend == "nccl" else "cpu"
+if device == "cuda":
+    torch.cuda.set_device(rank)
+dist.init_process_group(backend, init_method="file://" + init, rank=rank, world_size=world)
+import repro_torch as rt
+from repro_torch.kernels import mttkrp_kernel
+from repro_torch.launch import make_local_mesh
+st = rt.random_tensor((42, 30, 36), 900, seed=5)
+factors = rt.init_factors(st.shape, 8, seed=0, device=device)
+res = {}
+for n_model in (1, 2):
+    mesh = make_local_mesh(n_model=n_model, device=device)
+    for reduce in ("psum", "psum_scatter"):
+        eng = rt.build_engine(st, "distributed", 8, mesh=mesh, reduce=reduce,
+                              chunk_shape=(6, 6, 6), capacity=16, device=device)
+        before = mttkrp_kernel.launches
+        key = f"{n_model}/{reduce}"
+        res[key] = [eng(factors, m).cpu().tolist() for m in range(3)]
+        res[key + "/launches"] = mttkrp_kernel.launches - before
+        res[key + "/fit"] = rt.cp_als(st, 8, n_iters=3, engine=eng, seed=4).fit_history
+with open(f"{out}/{rank}.json", "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+"""
+
+
+def run_ranks(world: int, tmp_path, backend: str, timeout: float = 300) -> list:
+    """Run `_RANKS_WORKER` on `world` ranks (one card each under NCCL) and
+    return each rank's results; every rank is killed at the timeout."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", _RANKS_WORKER, str(r), str(world),
+                               str(tmp_path / "init"), str(tmp_path), backend],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.communicate()
+        pytest.fail(f"a rank did not finish within {timeout} s")
+    for p, (_out, err) in zip(procs, outs, strict=True):
+        assert p.returncode == 0, err[-4000:]
+    return [json.loads((tmp_path / f"{r}.json").read_text()) for r in range(world)]
+
+
+def test_distributed_engine_on_four_nccl_ranks_matches_kernel(cuda, tmp_path):
+    """Four NCCL ranks, one card each, on (4, 1) and (2, 2) meshes: every
+    rank's result within 1e-5 of Σ|terms| of the one-card `kernel` engine
+    per mode (mode 0: 44 data-padded rows over 42 chunk rows at 4 data
+    ranks), one float-kernel launch per mode, and cp_als fits within 1e-5."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards")
+    st = rt.random_tensor((42, 30, 36), 900, seed=5)
+    kern = rt.build_engine(st, "kernel", 8, chunk_shape=(6, 6, 6), capacity=16,
+                           plans=rt.PlanCache())
+    factors = rt.init_factors(st.shape, 8, seed=0, device=cuda)
+    coords = torch.from_numpy(st.coords).cuda()
+    abs_values = torch.from_numpy(np.abs(st.values)).cuda()
+    want = [kern(factors, m).cpu() for m in range(3)]
+    terms = [rt.mttkrp_coo([f.abs() for f in factors], coords, abs_values, mode=m,
+                           out_dim=st.shape[m]).cpu() for m in range(3)]
+    fit = rt.cp_als(st, 8, n_iters=3, engine=kern, seed=4).fit_history
+    results = run_ranks(4, tmp_path, "nccl")
+    for res in results:
+        for key in ("1/psum", "1/psum_scatter", "2/psum", "2/psum_scatter"):
+            assert res[key + "/launches"] == 3
+            for m in range(3):
+                got = torch.tensor(res[key][m])
+                assert got.shape == want[m].shape
+                assert bool(((got - want[m]).abs() <= 1e-5 * terms[m]).all()), (key, m)
+            np.testing.assert_allclose(res[key + "/fit"], fit, rtol=0, atol=1e-5)
