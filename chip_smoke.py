@@ -5,6 +5,9 @@
 
 Phases, each fatal on failure:
   1. device check: a CUDA card is required; print its name and power limit;
+     0a. the port's static analysis (`repro_torch.analysis`, every rule,
+     `--strict`) over this checkout: fatal on any unsuppressed finding;
+     prints the findings and suppressions per rule and its seconds;
   2. build both CUDA kernels with nvcc (one process each, started together)
      and print what ptxas reports for each kernel instantiation (registers,
      spills);
@@ -29,6 +32,16 @@ Phases, each fatal on failure:
      plain `chunked` engine on the card; then, on the small TABLE1 nell2,
      the kernel engine on the card must follow the CPU path that the CPU
      tests hold to the JAX reference;
+     4y. (right after phase 4, on its `kernel` engine at (a)) each kind of
+     call the `host-sync` rule's catalogue rests on runs under
+     `torch.cuda.set_sync_debug_mode("warn")` beside the rule's verdict on
+     it (a call the rule lets pass must not warn); then two cp_als
+     iterations under warn mode: the
+     synchronising calls torch reports, grouped by the file and line the
+     warning names, per iteration (set-up, then each iteration with its fit
+     and diff); every site inside `src/repro_torch/` must be one that phase
+     0a's `host-sync` rule reports (suppressed, with its reason); sites in
+     torch's own code are printed and not judged;
      4f. the fixed-point path: cp_als through the `fixed` engine on (a) with
      int7 and on (c) with int15-12; the fixed kernel must launch n_iters × N
      times (the float one never), and fit, diff and factors must equal, bit
@@ -140,6 +153,7 @@ A member's mix-up or a wrong padding moves them by orders of magnitude more.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import json
 import math
@@ -150,6 +164,8 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -166,6 +182,7 @@ from repro_torch.batch import (  # noqa: E402
     build_batched_kernel,
     pad_bucket,
 )
+from repro_torch.analysis import AnalysisResult, check_source, run_analysis  # noqa: E402
 from repro_torch.batch.cpals import _init_batched  # noqa: E402
 from repro_torch.engine import PlanCache, TuningStore, default_plan_cache  # noqa: E402
 from repro_torch.core.mttkrp import _alto_decode  # noqa: E402
@@ -1350,6 +1367,156 @@ def batched_scale(device) -> None:
     hold_gap("4b", [results[i] for i in sample], seq, "the sequential `ref` runs'")
 
 
+def static_analysis() -> AnalysisResult:
+    """Phase 0a: the port's analysis suite over this checkout, strict."""
+    t0 = time.perf_counter()
+    result = run_analysis(ROOT, strict=True)
+    seconds = time.perf_counter() - t0
+    active = Counter(f.rule for f in result.findings)
+    waived = Counter(f.rule for f in result.suppressed)
+    for rule in result.rules:
+        log(f"[0a]   {rule}: {active[rule]} finding(s), {waived[rule]} suppressed")
+    log(f"[0a] repro_torch.analysis --strict: {len(result.findings)} finding(s), "
+        f"{len(result.suppressed)} suppressed, over {result.n_files} files and "
+        f"{len(result.rules)} rules in {seconds:.2f}s")
+    if not result.ok:
+        for f in result.findings:
+            log(f"[0a]   {f.render()}")
+        fail("phase 0a: the port's static analysis reports unsuppressed findings")
+    return result
+
+
+class _IterationMarks:
+    """An engine that records, at each mode-0 call (the start of a CP-ALS
+    iteration), how many warnings `rec` holds; everything else is the
+    wrapped engine's."""
+
+    def __init__(self, engine, rec: list):
+        self._engine, self._rec, self.marks = engine, rec, []
+
+    def __call__(self, factors, mode):
+        if mode == 0:
+            self.marks.append(len(self._rec))
+        return self._engine(factors, mode)
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+
+SYNC_ITERS = 2
+SYNC_WARNING = "synchronizing CUDA operation"   # torch's sync-debug warning text
+
+
+#: Kinds of call the host-sync rule's catalogue rests on, each run on the
+#: card under warn mode beside the rule's verdict on the same line.
+SYNC_PROBES = (
+    "torch.from_numpy(host).to(device)",
+    "torch.from_numpy(host).pin_memory().to(device, non_blocking=True)",
+    "torch.tensor([1, 2], device=device)",
+    "float(x.sum())",
+    "x.sum().item()",
+    "x.cpu()",
+    "bool((x > 0).any())",
+    "x[x > 0]",
+    "torch.nonzero(x > 0)",
+    "torch.linalg.pinv(v)",
+    "torch.linalg.eigh(v)",
+    "torch.cuda.synchronize(device)",
+    "torch.linalg.solve_ex(v, x.T)",
+    "torch.where(x == 0, 1.0, x)",
+    "torch.zeros_like(x).index_add_(0, rows, x)",
+)
+_PROBE_SOURCE = """import torch
+
+
+def probe(x: torch.Tensor, v: torch.Tensor, rows: torch.Tensor, host, device):
+    return {}
+"""
+
+
+def sync_probe(expr: str, device) -> tuple[bool, list]:
+    """(whether the host-sync rule reports `expr`, torch's sync warnings
+    when it runs on `device`)."""
+    source = _PROBE_SOURCE.format(expr)
+    reported = bool(check_source("host-sync", source))
+    namespace: dict = {}
+    exec(compile(source, "<sync probe>", "exec"), namespace)
+    x = torch.arange(640, dtype=torch.float32, device=device).reshape(64, 10).sin()
+    args = (x, x.T @ x, torch.arange(64, device=device),
+            np.random.default_rng(0).random((1000, 10), dtype=np.float32), device)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            namespace["probe"](*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return reported, [w for w in caught if SYNC_WARNING in str(w.message)]
+
+
+def sync_sites(st, engine, analysis: AnalysisResult, device) -> int:
+    """Phase 4y: torch's own log of the synchronising calls in SYNC_ITERS
+    cp_als iterations of `engine`, held against the `host-sync` rule.
+    Returns the float kernel's launches."""
+    # torch's verdict on each kind of call beside the rule's: a call the
+    # rule lets pass must not synchronise (that would be a gap in the rule).
+    for expr in SYNC_PROBES:
+        reported, probe = sync_probe(expr, device)
+        where = sorted({f"{Path(w.filename).name}:{w.lineno}" for w in probe})
+        log(f"[4y] probe `{expr}`: host-sync {'reports it' if reported else 'lets it pass'}; "
+            f"torch: {len(probe)} sync warning(s) {where}")
+        if probe and not reported:
+            fail(f"phase 4y: `{expr}` synchronises on this card but the host-sync rule "
+                 "lets it pass")
+    mttkrp_kernel.launches = 0
+    mttkrp_fixed_kernel.launches = 0
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        marked = _IterationMarks(engine, rec)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = rt.cp_als(st, RANK, n_iters=SYNC_ITERS, engine=marked, seed=0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    launches = mttkrp_kernel.launches
+    if launches != SYNC_ITERS * st.ndim or mttkrp_fixed_kernel.launches:
+        fail(f"phase 4y: the float kernel launched {launches} times (expected "
+             f"{SYNC_ITERS * st.ndim}), the fixed one {mttkrp_fixed_kernel.launches}")
+    if len(marked.marks) != SYNC_ITERS or not all(math.isfinite(f) for f in res.fit_history):
+        fail(f"phase 4y: {len(marked.marks)} iterations marked, fit {res.fit_history}")
+    # A warning recorded before the k-th mark belongs to iteration k - 1
+    # (0: the set-up before the first iteration).
+    syncs = [(bisect.bisect_right(marked.marks, i), w) for i, w in enumerate(rec)
+             if SYNC_WARNING in str(w.message)]
+    reported = {(f.path, f.line): f.reason for f in analysis.suppressed if f.rule == "host-sync"}
+    port = ROOT / "src" / "repro_torch"
+    gaps = []
+    for k, label in enumerate(["set-up", *[f"iteration {i}" for i in range(SYNC_ITERS)]]):
+        part = Counter((w.filename, w.lineno) for seg, w in syncs if seg == k)
+        log(f"[4y] {label}: {sum(part.values())} synchronising call(s)")
+        for (filename, line), n in sorted(part.items()):
+            path = Path(filename).resolve()
+            if path.is_relative_to(port):
+                rel = path.relative_to(ROOT).as_posix()
+                why = reported.get((rel, line))
+                log(f"[4y]   {rel}:{line} x{n}: "
+                    + (f"host-sync reports it ({why})" if why else "NOT REPORTED by host-sync"))
+                if why is None:
+                    gaps.append(f"{rel}:{line}")
+            else:
+                log(f"[4y]   {filename}:{line} x{n}: outside the port, not judged")
+    others = Counter(f"{w.category.__name__} at {w.filename}:{w.lineno}: {str(w.message)[:120]}"
+                     for w in rec if SYNC_WARNING not in str(w.message))
+    for other, n in sorted(others.items()):
+        log(f"[4y]   other warning x{n}: {other}")
+    log(f"[4y] {len(syncs)} synchronising call(s) in {SYNC_ITERS} iterations, "
+        f"{sum(others.values())} other warning(s); fit {res.fit_history}")
+    if gaps:
+        fail(f"phase 4y: synchronising sites the host-sync rule misses: {sorted(set(gaps))}")
+    return launches
+
+
 def main() -> int:
     # 1. Device check.
     if not torch.cuda.is_available():
@@ -1367,6 +1534,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+
+    # 0a. The port's static analysis over this checkout (host work).
+    analysis = static_analysis()
 
     # 2. Build both kernels, one nvcc each, in parallel.
     t0 = time.perf_counter()
@@ -1474,6 +1644,11 @@ def main() -> int:
         f"max gap (fit, diff)={small_gap:.3e} (tolerance {SMALL_ATOL})")
     if small_gap > SMALL_ATOL:
         fail("the kernel engine on the card left the CPU path on TABLE1 nell2")
+
+    # 4y. torch's sync log over phase 4's engine, against the host-sync rule.
+    t0 = time.perf_counter()
+    sync_launches = sync_sites(st_a, engine, analysis, device)
+    log(f"[4y] phase took {time.perf_counter() - t0:.1f}s")
 
     # 4d. The distributed engine at (a) on a one-rank NCCL mesh.
     t0 = time.perf_counter()
@@ -1641,7 +1816,7 @@ def main() -> int:
 
     # 6. Kernels line (ms/plain_ms/bound_ms: the 3 launches of one CP-ALS
     # iteration at case (a)'s shapes, summed over the modes; launches: the
-    # main paths' runs, the float kernel's through `kernel`, `distributed`,
+    # main paths' runs, the float kernel's through `kernel` (phases 4 and 4y), `distributed`,
     # `hetero` and the tuned `auto` engine, the fixed kernel's over both of
     # its runs).
     def entry(kind, rows, n_launches, err):
@@ -1653,7 +1828,8 @@ def main() -> int:
                              else "operations"),
                 "library_ms": None}
     print(json.dumps({"kernels": [entry("float", modes,
-                                        launches + dist_launches + hetero_launches + auto_launches,
+                                        launches + sync_launches + dist_launches
+                                        + hetero_launches + auto_launches,
                                         worst),
                                   entry("fixed", fixed_modes, fixed_launches,
                                         float(worst_fixed))]}), flush=True)

@@ -171,14 +171,19 @@ def _decompose_bucket(
         bucket_sp.set(engine=report.chosen, tune_source=report.source)
         n = len(pb.dims)
 
+        # repro-lint: disable=host-sync -- bucket set-up: uploaded once per bucket, before the ALS loop
         factors = [torch.from_numpy(f).to(device)
                    for f in _init_batched(bucket, rank, seed)]
         lam = torch.ones((pb.size, rank), dtype=torch.float32, device=device)
+        # repro-lint: disable=host-sync -- bucket set-up: uploaded once per bucket, before the ALS loop
         values = torch.from_numpy(pb.values).to(device)
         norm_x2 = (values * values).sum(dim=1)
         if track_diff:
+            # repro-lint: disable=host-sync -- bucket set-up: uploaded once per bucket, before the ALS loop
             mask = torch.from_numpy(pb.mask).to(device)
+            # repro-lint: disable=host-sync -- bucket set-up: uploaded once per bucket, before the ALS loop
             coords = torch.from_numpy(pb.coords).to(device)
+            # repro-lint: disable=host-sync -- bucket set-up: uploaded once per bucket, before the ALS loop
             nnz = torch.tensor(pb.nnz, dtype=torch.float32, device=device)
 
         fits: list[torch.Tensor] = []
@@ -197,6 +202,7 @@ def _decompose_bucket(
                     factors[mode], lam = _normalize_batched(m @ _pinv(v), norm)
                     mlast = m
                 if device.type == "cuda":
+                    # repro-lint: disable=host-sync -- timing barrier: iter_times must measure completed device work, not dispatch
                     torch.cuda.synchronize(device)
                 dt = time.perf_counter() - t0
                 # Same measurement the CPResults report as iter_times.
@@ -208,7 +214,9 @@ def _decompose_bucket(
 
     # One host readout per bucket: (B, n_iters) fits (and diffs).
     empty = [[] for _ in range(pb.size)]
+    # repro-lint: disable=host-sync -- one host readout per bucket: the (B, n_iters) fits, after the ALS loop
     fit_rows = torch.stack(fits, dim=1).tolist() if fits else empty
+    # repro-lint: disable=host-sync -- one host readout per bucket: the (B, n_iters) diffs, after the ALS loop
     diff_rows = torch.stack(diffs, dim=1).tolist() if diffs else empty
     return [CPResult(
         factors=[factors[m][i, : t.shape[m]].clone() for m in range(n)],

@@ -209,8 +209,10 @@ def autotune_bucket(
 
     # -- cold: probe every candidate on every mode -------------------------
     rng = np.random.default_rng(seed)
-    factors = [torch.from_numpy(np.asarray(rng.uniform(0, 1, size=(pb.size, d, rank)),
-                                           dtype=np.float32)).to(device) for d in pb.dims]
+    draws = [np.asarray(rng.uniform(0, 1, size=(pb.size, d, rank)), dtype=np.float32)
+             for d in pb.dims]
+    # repro-lint: disable=host-sync -- probe set-up: the probe factors are drawn on the host from the seed and uploaded once per cold tune
+    factors = [torch.from_numpy(a).to(device) for a in draws]
     probe_list = list(names)
     skipped: dict[str, str] = {}
     if policy.max_probes is not None and policy.max_probes < len(probe_list):

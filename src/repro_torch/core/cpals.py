@@ -62,6 +62,7 @@ def init_factors(shape, rank: int, seed: int = 0, *,
     """Random init in [0, 1), drawn exactly as the reference draws it."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
+    # repro-lint: disable=host-sync -- init: the factors are drawn on the host (byte-identical to the reference's draw) and uploaded once per decomposition
     return [torch.from_numpy(rng.uniform(0, 1, size=(d, rank)).astype(np.float32)).to(device)
             for d in shape]
 
@@ -82,10 +83,12 @@ def _pinv(v: torch.Tensor) -> torch.Tensor:
     relative to each matrix's largest singular value (torch's default is
     10× lower).  m and n are the last two dimensions, so a batched
     (B, R, R) stack takes R's cutoff, not B's."""
+    # repro-lint: disable=host-sync -- torch's SVD reads its info flag back (2 syncs per call, one call per mode on the card) and torch has no sync-free pinv; the R×R solve keeps jnp.linalg.pinv's cutoff (ROADMAP Queue 3)
     return torch.linalg.pinv(v, rtol=10 * max(v.shape[-2:]) * torch.finfo(v.dtype).eps)
 
 
 def _coo_tensors(st: SparseTensor, device: torch.device):
+    # repro-lint: disable=host-sync -- the COO arrays are uploaded once per decomposition, for the fit and diff
     return (torch.from_numpy(st.coords).to(device), torch.from_numpy(st.values).to(device))
 
 
@@ -105,13 +108,16 @@ def avg_abs_diff(st: SparseTensor, factors, lam, *, dense_limit: int = 1 << 22,
     copy per call."""
     device = lam.device
     if math.prod(st.shape) <= dense_limit and st.ndim <= 7:
+        # repro-lint: disable=host-sync -- diagnostic API: the dense tensor (at most dense_limit cells) is uploaded per call, as the reference's jnp.asarray does; the readout below syncs anyway
         dense = torch.from_numpy(st.to_dense()).to(device)
         letters = "abcdefg"[: st.ndim]
         sub = ",".join(f"{c}r" for c in letters)
         approx = torch.einsum(f"r,{sub}->{letters}", lam, *factors)
+        # repro-lint: disable=host-sync -- diagnostic API returning a host scalar; cp_als reads it once per iteration only with track_diff, after the iteration's timed barrier
         return float((dense - approx).abs().mean())
     coords, values = coo if coo is not None else _coo_tensors(st, device)
     approx = reconstruct_nnz(factors, lam, coords)
+    # repro-lint: disable=host-sync -- diagnostic API returning a host scalar; cp_als reads it once per iteration only with track_diff, after the iteration's timed barrier
     return float((values - approx).abs().mean())
 
 
@@ -131,6 +137,7 @@ def fit_value(st: SparseTensor, factors, lam, mlast=None, last_mode=None, *,
     else:
         coords, values = coo if coo is not None else _coo_tensors(st, lam.device)
         inner = torch.dot(reconstruct_nnz(factors, lam, coords), values)
+    # repro-lint: disable=host-sync -- fit is a host scalar by contract: one fused readout per iteration, after the iteration's timed barrier
     resid = max(float(norm_x2 - 2.0 * inner + norm_approx2), 0.0)
     return 1.0 - math.sqrt(resid) / max(math.sqrt(norm_x2), 1e-30)
 
@@ -206,6 +213,7 @@ def _measured_quant_error(eng, st: SparseTensor, factors, mlast, coo) -> float |
     out = mlast if mlast is not None and mode == st.ndim - 1 else eng(factors, mode)
     coords, values = coo
     ref = mttkrp_coo(factors, coords, values, mode=mode, out_dim=st.shape[mode])
+    # repro-lint: disable=host-sync -- one-shot quant-error readout after tuning, reported on CPResult; never in the iteration loop
     return float(torch.linalg.vector_norm(out - ref) / (torch.linalg.vector_norm(ref) + 1e-30))
 
 
@@ -292,6 +300,7 @@ def cp_als(
                         factors[mode] = a
                         mlast = m
                 if device.type == "cuda":
+                    # repro-lint: disable=host-sync -- timing barrier: iter_times must measure completed device work, not dispatch
                     torch.cuda.synchronize(device)
                 dt = time.perf_counter() - t0
                 # One measurement, two views: `iter_times` and the span's

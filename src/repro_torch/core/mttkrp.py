@@ -61,12 +61,9 @@ def chunked_device_arrays(ct: ChunkedTensor, device: torch.device) -> dict:
     """The static per-run arrays, moved to `device` once (the tensor stays
     resident across CP-ALS iterations; only factors change).  The kernels
     read `nnz_per_task` to stop at each task's live slots."""
-    return dict(
-        task_chunk=torch.from_numpy(ct.task_chunk).to(device),
-        coords_rel=torch.from_numpy(ct.coords_rel).to(device),
-        values=torch.from_numpy(ct.values).to(device),
-        nnz_per_task=torch.from_numpy(ct.nnz_per_task).to(device),
-    )
+    fields = ("task_chunk", "coords_rel", "values", "nnz_per_task")
+    # repro-lint: disable=host-sync -- engine build: uploaded once, resident across CP-ALS iterations
+    return {k: torch.from_numpy(getattr(ct, k)).to(device) for k in fields}
 
 
 def gather_factor_blocks(factor: torch.Tensor, offsets: torch.Tensor, size: int) -> torch.Tensor:
@@ -78,8 +75,13 @@ def gather_factor_blocks(factor: torch.Tensor, offsets: torch.Tensor, size: int)
 
 
 def chunk_offsets(task_chunk: torch.Tensor, chunk_shape: tuple[int, ...]) -> torch.Tensor:
-    """(T, N) int32 global row offset of each task's chunk."""
-    return task_chunk * torch.tensor(chunk_shape, dtype=torch.int32, device=task_chunk.device)
+    """(T, N) int32 global row offset of each task's chunk.  The chunk shape
+    reaches the card from pinned memory without blocking: a blocking copy
+    here would stall every mode of every iteration of the plain engines."""
+    scale = torch.tensor(chunk_shape, dtype=torch.int32)
+    if task_chunk.is_cuda:
+        scale = scale.pin_memory().to(task_chunk.device, non_blocking=True)
+    return task_chunk * scale
 
 
 def scatter_local(part: torch.Tensor, c_out: torch.Tensor, s_out: int) -> torch.Tensor:

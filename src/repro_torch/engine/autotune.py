@@ -215,6 +215,7 @@ class AutotuneReport:
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
+        # repro-lint: disable=host-sync -- timing harness: the barrier IS the measurement boundary (warmup drain and every rep)
         torch.cuda.synchronize(device)
 
 
@@ -249,8 +250,10 @@ def _agree(values: list[float]) -> list[float]:
         return values
     device = (torch.device("cuda", torch.cuda.current_device())
               if dist.get_backend() == "nccl" else torch.device("cpu"))
+    # repro-lint: disable=host-sync -- the ranks' agreement on probe times: one small upload and readback per decision, only under a process group of more than one rank
     t = torch.tensor(values, dtype=torch.float64, device=device)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    # repro-lint: disable=host-sync -- the ranks' agreement on probe times: one small upload and readback per decision, only under a process group of more than one rank
     return t.tolist()
 
 
@@ -568,15 +571,18 @@ def autotune_engine(
             # EXACTLY on that subset — the sample bounds the reference cost,
             # not just the norm comparison.
             touch = np.isin(coords[:, m], rows)
-            ref = mttkrp_coo(
-                factors, torch.from_numpy(coords[touch]).to(ctx.device),
-                torch.from_numpy(np.asarray(ctx.st.values)[touch]).to(ctx.device),
-                mode=m, out_dim=ctx.st.shape[m])
+            # repro-lint: disable=host-sync -- error-probe set-up: the sampled reference's inputs are uploaded once per mode per tune
+            t_coords = torch.from_numpy(coords[touch]).to(ctx.device)
+            # repro-lint: disable=host-sync -- error-probe set-up: the sampled reference's inputs are uploaded once per mode per tune
+            t_values = torch.from_numpy(np.asarray(ctx.st.values)[touch]).to(ctx.device)
+            ref = mttkrp_coo(factors, t_coords, t_values, mode=m, out_dim=ctx.st.shape[m])
             # Keep only the compared rows, and read the reference norm back
             # ONCE per mode — it is candidate-invariant, so syncing it inside
             # _measure_error would pay a device round-trip per lossy probe.
+            # repro-lint: disable=host-sync -- error-probe set-up: the compared rows are uploaded once per mode per tune
             _rows[m] = torch.from_numpy(rows).to(ctx.device)
             _refs[m] = ref[_rows[m]]
+            # repro-lint: disable=host-sync -- candidate-invariant norm, read back once per mode (hoisted out of the per-candidate probe loop)
             _ref_norms[m] = float(torch.linalg.vector_norm(_refs[m]))
         return _refs[m], _rows[m]
 
@@ -586,6 +592,7 @@ def autotune_engine(
         diff = torch.linalg.vector_norm(out[rows] - ref)
         # Budget gating is host control flow: one scalar readout per lossy
         # probe is the measurement itself (the reference norm is cached).
+        # repro-lint: disable=host-sync -- budget gating is host control flow: one scalar readout per lossy probe is the measurement itself
         return float(diff) / (_ref_norms[m] + 1e-30)
 
     def _cand_preset(name: str) -> str | None:

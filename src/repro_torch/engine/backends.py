@@ -54,7 +54,9 @@ def _lockfree_nnz(ctx: EngineContext, dev: dict):
 
 @register_backend("ref", description="plain COO scatter-add reference (paper Fig. 1)")
 def _build_ref(ctx: EngineContext):
+    # repro-lint: disable=host-sync -- engine build: the tensor's arrays are uploaded once and stay resident across iterations
     coords = torch.from_numpy(ctx.st.coords).to(ctx.device)
+    # repro-lint: disable=host-sync -- engine build: the tensor's arrays are uploaded once and stay resident across iterations
     values = torch.from_numpy(ctx.st.values).to(ctx.device)
     shape = ctx.st.shape
 
@@ -73,7 +75,9 @@ def _build_alto(ctx: EngineContext):
         # is the ROADMAP lift); beyond it, take the ALTO-*ordered* COO
         # baseline — same traversal order, explicit coordinates.
         order = baselines.alto_order(ctx.st.coords, shape)
+        # repro-lint: disable=host-sync -- engine build: the tensor's arrays are uploaded once and stay resident across iterations
         a_coords = torch.from_numpy(ctx.st.coords[order]).to(ctx.device)
+        # repro-lint: disable=host-sync -- engine build: the tensor's arrays are uploaded once and stay resident across iterations
         a_values = torch.from_numpy(ctx.st.values[order]).to(ctx.device)
 
         def engine(factors, mode):
@@ -149,6 +153,7 @@ def _build_fixed(ctx: EngineContext):
     cs, shape = ct.chunk_shape, ctx.st.shape
     # The values are quantized once, on the host, to the runtime 16-bit format.
     vq = value_qformat(ctx.st.values, storage_bits=16)
+    # repro-lint: disable=host-sync -- engine build: the tensor's arrays are uploaded once and stay resident across iterations
     qvalues = torch.from_numpy(vq.quantize_np(ct.values)).to(ctx.device)
     nnz_pt = _lockfree_nnz(ctx, dev)
 

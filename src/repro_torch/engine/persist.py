@@ -385,7 +385,7 @@ class TuningStore:
     def expired(self, entry: StoredEntry, *, now: float | None = None) -> bool:
         if self.ttl_s is None:
             return False
-        now = time.time() if now is None else now
+        now = time.time() if now is None else now  # repro-lint: disable=nondeterminism -- TTL expiry and created-ordering compare against epoch wall-clock by design (docs/store-schema.md)
         return (now - entry.created) > self.ttl_s
 
     # -- I/O ---------------------------------------------------------------
@@ -480,7 +480,7 @@ class TuningStore:
         under a stricter-or-equal budget serves a looser request, anything
         else is invisible and the workload re-probes."""
         nnz_tol = self.nnz_tol if nnz_tol is None else nnz_tol
-        now = time.time()
+        now = time.time()  # repro-lint: disable=nondeterminism -- TTL expiry compares stored epoch timestamps against wall-clock now
         best: StoredEntry | None = None
         best_dist = float("inf")
         for e in self._load():
@@ -504,7 +504,7 @@ class TuningStore:
         entries are excluded unless `include_expired` — stale timings are no
         better as training data than as dispatch decisions."""
         want = tuple(sorted(device.items())) if device is not None else None
-        now = time.time()
+        now = time.time()  # repro-lint: disable=nondeterminism -- TTL expiry compares stored epoch timestamps against wall-clock now
         rows: list[Observation] = []
         for e in self._load():
             if not include_expired and self.expired(e, now=now):
@@ -535,7 +535,7 @@ class TuningStore:
         entry = StoredEntry(key=key, winners=dict(winners),
                             timings={n: dict(p) for n, p in timings.items()},
                             overall=overall, warmup=warmup, reps=reps,
-                            created=time.time(), budget=budget,
+                            created=time.time(), budget=budget,  # repro-lint: disable=nondeterminism -- entry creation timestamp is an epoch wall-clock field of the persisted schema
                             errors={n: dict(p)
                                     for n, p in (errors or {}).items()},
                             format_stats=format_stats)

@@ -196,7 +196,7 @@ class Tracer:
             # places the monotonic span offsets in absolute time for the
             # Perfetto export; it never enters a measurement or a persisted
             # tuning artifact.
-            self.epoch_wall = time.time()
+            self.epoch_wall = time.time()  # repro-lint: disable=nondeterminism -- trace epoch anchor: export metadata only, never compared or persisted into tuning state
             self.enabled = True
 
     def disable(self) -> None:

@@ -21,7 +21,7 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch, repro_torch.engine, repro_torch.kernels, repro_torch.interop\n"
         "import repro_torch.batch, repro_torch.serve, repro_torch.obs, repro_torch.obs.__main__\n"
         "import repro_torch.sweep, repro_torch.roofline, repro_torch.core.distributed\n"
-        "import repro_torch.launch\n"
+        "import repro_torch.launch, repro_torch.analysis, repro_torch.analysis.__main__\n"
         "assert not repro_torch.kernels._build._libs  # nothing built on import\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "    if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))))\n")
