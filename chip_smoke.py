@@ -8,9 +8,9 @@ Phases, each fatal on failure:
      0a. the port's static analysis (`repro_torch.analysis`, every rule,
      `--strict`) over this checkout: fatal on any unsuppressed finding;
      prints the findings and suppressions per rule and its seconds;
-  2. build both CUDA kernels with nvcc (one process each, started together)
-     and print what ptxas reports for each kernel instantiation (registers,
-     spills);
+  2. build the three CUDA kernels with nvcc (one process each, started
+     together) and print what ptxas reports for each kernel instantiation
+     (registers, spills);
   3. hold the float kernel against its plain PyTorch version on the card,
      every mode, local partials and the full op (with `nnz_per_task`, as
      the engines call them), printing each launch's tier, blocks per task
@@ -31,8 +31,20 @@ Phases, each fatal on failure:
      times (the fixed one never), and the fit and factors must follow the
      plain `chunked` engine on the card; then, on the small TABLE1 nell2,
      the kernel engine on the card must follow the CPU path that the CPU
-     tests hold to the JAX reference;
-     4y. (right after phase 4, on its `kernel` engine at (a)) each kind of
+     tests hold to the JAX reference; every mode update's pseudo-inverse
+     goes through the Gram pseudo-inverse kernel (`csrc/gram_pinv.cu`,
+     n_iters × 3 launches);
+     4p. (right after phase 4) the Gram pseudo-inverse kernel against its
+     plain version (torch's SVD with jnp's cutoff) on the card at
+     max(1e-5, κ·2^-17) of each matrix's largest entry: the Grams of phase
+     4's factors at (a) (R = 10), rank-deficient stacks (a zero factor
+     column, two equal columns), R = 160 (past shared memory: the global
+     scratch path) and a batched stack of 4096 at R = 5; timed at (a)'s
+     three Grams in turns against the plain version and
+     `torch.linalg.pinv(hermitian=True)`; then cp_als through phase 4's
+     engine with the plain pseudo-inverse: fits within 1e-6 of phase 4's,
+     and both runs' steady iteration times;
+     4y. (right after phase 4p, on phase 4's `kernel` engine at (a)) each kind of
      call the `host-sync` rule's catalogue rests on runs under
      `torch.cuda.set_sync_debug_mode("warn")` beside the rule's verdict on
      it (a call the rule lets pass must not warn); then two cp_als
@@ -41,7 +53,9 @@ Phases, each fatal on failure:
      warning names, per iteration (set-up, then each iteration with its fit
      and diff); every site inside `src/repro_torch/` must be one that phase
      0a's `host-sync` rule reports (suppressed, with its reason); sites in
-     torch's own code are printed and not judged;
+     torch's own code are printed and not judged; each iteration must wait
+     on the host exactly twice (the fit and diff readouts), never in the
+     pseudo-inverse;
      4f. the fixed-point path: cp_als through the `fixed` engine on (a) with
      int7 and on (c) with int15-12; the fixed kernel must launch n_iters × N
      times (the float one never), and fit, diff and factors must equal, bit
@@ -105,7 +119,8 @@ Phases, each fatal on failure:
      `roofline.H100_SXM5` (a non-empty front, every peak_fraction in [0,
      1.05]); cells, probes, wall time and winners printed;
      4s. the serving path, `DecomposeService` over `cp_als_batched` (plain
-     tensor ops: it launches neither kernel, which is checked): benchmarks/
+     tensor ops: it launches neither MTTKRP kernel, which is checked; its
+     batched pseudo-inverses launch the Gram kernel): benchmarks/
      serve_bench.py's load (three shape/nnz families, 4096 requests from
      seed 0, rank 5, 3 iterations) from 8 closed-loop client threads,
      max_batch=256, max_wait_ms=20, on a cold store in a fresh temporary
@@ -155,6 +170,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import inspect
 import json
 import math
 import re
@@ -189,7 +205,14 @@ from repro_torch.core.mttkrp import _alto_decode  # noqa: E402
 from repro_torch.engine.calibrate import MIN_OBSERVATIONS  # noqa: E402
 from repro_torch.obs import capture  # noqa: E402
 from repro_torch.formats import MAX_KEY_BITS  # noqa: E402
-from repro_torch.kernels import _build, mttkrp_fixed_kernel, mttkrp_kernel, tiles  # noqa: E402
+from repro_torch.core import cpals as port_cpals  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    _build,
+    gram_pinv,
+    mttkrp_fixed_kernel,
+    mttkrp_kernel,
+    tiles,
+)
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.launch import mesh_axes  # noqa: E402
 from repro_torch.roofline import H100_SXM5, collective_bytes  # noqa: E402
@@ -233,7 +256,18 @@ KERNELS = {
     "fixed": dict(name="mttkrp_fixed_local_i32",
                   source="src/repro_torch/kernels/csrc/mttkrp_fixed.cu",
                   replaces="src/repro/kernels/mttkrp_fixed_kernel.py:62"),
+    # No Pallas counterpart: it ports the reference's `jnp.linalg.pinv` call.
+    "pinv": dict(name="gram_pinv_f32", source="src/repro_torch/kernels/csrc/gram_pinv.cu",
+                 replaces="src/repro/core/cpals.py:315"),
 }
+F64_FLOPS = 34e12                  # H100 SXM data sheet, float64 outside the tensor cores
+# The Gram pseudo-inverse kernel (float64 Jacobi) against its plain version
+# (torch's float32 SVD), per matrix, relative to its largest entry: the flat
+# value where V is well conditioned, about 64 float32 roundings (2^-23)
+# magnified by κ, the condition number over the kept directions, where not.
+PINV_ATOL, PINV_KAPPA = 1e-5, 2.0 ** -17
+PINV_FIT_ATOL = 1e-6               # cp_als fits, gram_pinv against the plain pseudo-inverse
+PR18_ITER_MS = "12.49–13.81"       # steady `kernel` iterations at (a), PR 18 run 2
 
 
 def log(msg: str) -> None:
@@ -312,7 +346,8 @@ def ptxas_summary(build_log: str) -> list[str]:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            kind = "task_kernel" if "task_kernel" in mangled else "global_kernel"
+            kind = next((k for k in ("task_kernel", "gram_pinv_kernel") if k in mangled),
+                        "global_kernel")
             pol = re.search(r"FixedPolicyI(\w)(\w)E", mangled)
             policy = (f"fixed<{types[pol.group(1)]} factors, {types[pol.group(2)]} values>"
                       if pol else "float")
@@ -1367,6 +1402,177 @@ def batched_scale(device) -> None:
     hold_gap("4b", [results[i] for i in sample], seq, "the sequential `ref` runs'")
 
 
+# ---------------------------------------------------------------------------
+# Phase 4p: the Gram pseudo-inverse kernel (csrc/gram_pinv.cu).
+# ---------------------------------------------------------------------------
+
+def gram_stack(rank: int, n: int, seed: int, rows: int = 200, edit=None) -> np.ndarray:
+    """(n, R, R) float32 Hadamard products of two seeded uniform factors'
+    Grams, as CP-ALS forms V; `edit(f)` alters every factor."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        v = np.ones((rank, rank), np.float32)
+        for _m in range(2):
+            f = rng.uniform(0, 1, (rows, rank)).astype(np.float32)
+            if edit is not None:
+                edit(f)
+            v = v * (f.T @ f)
+        out.append(v)
+    return np.stack(out)
+
+
+def mode_grams(factors) -> torch.Tensor:
+    """(N, R, R): each mode update's V from the given factors, on their device."""
+    grams = [f.T @ f for f in factors]
+    out = []
+    for mode in range(len(factors)):
+        v = torch.ones_like(grams[0])
+        for k, g in enumerate(grams):
+            if k != mode:
+                v = v * g
+        out.append(v)
+    return torch.stack(out)
+
+
+def kept_kappa(v: np.ndarray) -> np.ndarray:
+    """Per matrix: λ_max / λ_min over the directions jnp's cutoff keeps."""
+    lam = np.abs(np.linalg.eigvalsh(v.astype(np.float64)))
+    top = lam.max(axis=-1, keepdims=True)
+    kept = np.where(lam > kref.gram_pinv_rtol(v.shape[-1]) * top, lam, np.inf)
+    return top[..., 0] / kept.min(axis=-1)
+
+
+def jacobi_rotations(v: np.ndarray) -> int:
+    """The rotations the kernel's round-robin Jacobi applies to one matrix
+    (its float64 arithmetic and criterion, replayed on the host): what this
+    input needs, for the operations bound."""
+    r = v.shape[0]
+    a = np.triu(v).astype(np.float64)
+    a = a + np.triu(a, 1).T
+    m = r + (r & 1)
+    total = 0
+    for _sweep in range(40):
+        rotated = 0
+        for k in range(m - 1):
+            pairs = [(k, m - 1), *(((k + i) % (m - 1), (k - i) % (m - 1))
+                                   for i in range(1, m // 2))]
+            rots = []
+            for p, q in (sorted(pq) for pq in pairs):
+                if q >= r:
+                    continue
+                apq, app, aqq = a[p, q], a[p, p], a[q, q]
+                if apq != 0.0 and abs(apq) > np.finfo(np.float64).eps * math.sqrt(abs(app * aqq)):
+                    theta = (aqq - app) / (2.0 * apq)
+                    t = math.copysign(1.0, theta) / (abs(theta) + math.sqrt(1.0 + theta * theta))
+                    c = 1.0 / math.sqrt(1.0 + t * t)
+                    rots.append((p, q, c, t * c))
+            for p, q, c, sn in rots:
+                a[:, [p, q]] = a[:, [p, q]] @ np.array([[c, sn], [-sn, c]])
+            for p, q, c, sn in rots:
+                a[[p, q], :] = np.array([[c, -sn], [sn, c]]) @ a[[p, q], :]
+                a[p, q] = a[q, p] = 0.0
+            rotated += len(rots)
+        total += rotated
+        if not rotated:
+            break
+    return total
+
+
+def pinv_bound(v: np.ndarray) -> tuple[float, str]:
+    """Least time for one launch on the stack `v`: each matrix read once
+    and written once (2·R²·4 B), over the memory rate; the float64
+    operations it does (18·R per rotation the data need, 3·R³ to form the
+    result), over the float64 rate."""
+    r = v.shape[-1]
+    nbytes = 2 * v.shape[0] * r * r * 4
+    ops = sum(18 * r * jacobi_rotations(x) + 3 * r ** 3 for x in v)
+    return bound(nbytes, ops, F64_FLOPS)
+
+
+def hold_pinv(label: str, v: torch.Tensor) -> float:
+    """gram_pinv on `v` against the plain version, per matrix at
+    max(PINV_ATOL, κ·PINV_KAPPA) of its largest entry.  Returns the largest
+    absolute difference."""
+    got = gram_pinv.gram_pinv(v)
+    want = kref.gram_pinv_ref(v)
+    torch.cuda.synchronize()
+    g, w = got.double().cpu().numpy(), want.double().cpu().numpy()
+    kappa = kept_kappa(v.cpu().numpy())
+    tol = np.maximum(PINV_ATOL, kappa * PINV_KAPPA)
+    rel = np.abs(g - w).max(axis=(-2, -1)) / np.abs(w).max(axis=(-2, -1))
+    worst = float(np.abs(g - w).max())
+    symmetric = bool(torch.equal(got, got.mT))
+    plan = gram_pinv.plan_pinv(v.shape[-1], tiles.device_budget(v.device))
+    log(f"[4p]   {label}: {tuple(v.shape)}, {plan}; "
+        f"max |kernel - plain| {worst:.3e}, max relative {rel.max():.3e} (tolerance "
+        f"{tol.min():.3e}..{tol.max():.3e}, κ up to {kappa.max():.1f}); symmetric {symmetric}")
+    if not (rel <= tol).all() or not symmetric:
+        fail(f"phase 4p: the Gram pseudo-inverse kernel left its plain version on {label}")
+    return worst
+
+
+def _zero_column(f):
+    f[:, 3] = 0.0
+
+
+def _equal_columns(f):
+    f[:, 6] = f[:, 5]
+
+
+def pinv_checks(st, engine, kernel_run, device) -> dict:
+    """Phase 4p.  Returns the kernels line's numbers for the Gram kernel:
+    ms/plain_ms/library_ms/bound_ms summed over (a)'s three mode updates."""
+    grams = mode_grams(kernel_run.factors).contiguous()
+    worst = hold_pinv("(a) the Grams of phase 4's factors, R = 10", grams)
+    for label, v in [
+            ("a zero factor column", gram_stack(RANK, 4, 1, edit=_zero_column)),
+            ("two equal factor columns", gram_stack(RANK, 4, 2, edit=_equal_columns)),
+            ("R = 160", gram_stack(160, 2, 3, rows=400)),
+            ("B = 4096, R = 5", gram_stack(5, 4096, 4, rows=50))]:
+        hold_pinv(label, torch.from_numpy(v).to(device))
+    # (a)'s three V, one launch each as cp_als makes them, in turns.
+    rtol = kref.gram_pinv_rtol(RANK)
+    row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by=set())
+    for mode in range(st.ndim):
+        v = grams[mode].contiguous()
+        p1, l1, k1, k2, l2, p2 = (
+            time_ms(lambda v=v: kref.gram_pinv_ref(v), 50),
+            time_ms(lambda v=v: torch.linalg.pinv(v, rtol=rtol, hermitian=True), 50),
+            time_ms(lambda v=v: gram_pinv.gram_pinv(v), 50),
+            time_ms(lambda v=v: gram_pinv.gram_pinv(v), 50),
+            time_ms(lambda v=v: torch.linalg.pinv(v, rtol=rtol, hermitian=True), 50),
+            time_ms(lambda v=v: kref.gram_pinv_ref(v), 50))
+        b_ms, b_by = pinv_bound(v[None].cpu().numpy())
+        log(f"[4p]   mode {mode} V (1, {RANK}, {RANK}): kernel {k1:.4f}/{k2:.4f} ms, plain "
+            f"(SVD) {p1:.4f}/{p2:.4f} ms, torch.linalg.pinv(hermitian=True) {l1:.4f}/{l2:.4f} "
+            f"ms, bound {b_ms:.3e} ms ({b_by})")
+        row["ms"] += (k1 + k2) / 2
+        row["plain_ms"] += (p1 + p2) / 2
+        row["library_ms"] += (l1 + l2) / 2
+        row["bound_ms"] += b_ms
+        row["bound_by"].add(b_by)
+    big = torch.from_numpy(gram_stack(5, 4096, 4, rows=50)).to(device)
+    log(f"[4p]   B = 4096, R = 5 (the serving path's stacks): kernel "
+        f"{time_ms(lambda: gram_pinv.gram_pinv(big), 20):.4f} ms, plain "
+        f"{time_ms(lambda: kref.gram_pinv_ref(big), 5):.4f} ms per call")
+    # cp_als through the plain pseudo-inverse, on phase 4's engine.
+    port_cpals._pinv, kernel_pinv = kref.gram_pinv_ref, port_cpals._pinv
+    try:
+        plain = rt.cp_als(st, RANK, n_iters=N_ITERS, engine=engine, seed=0)
+    finally:
+        port_cpals._pinv = kernel_pinv
+    gap = max(abs(a - b) for a, b in zip(kernel_run.fit_history, plain.fit_history, strict=True))
+    log(f"[4p]   cp_als at (a), |fit gram_pinv - fit plain pinv| per run max={gap:.3e} "
+        f"(tolerance {PINV_FIT_ATOL}); steady iteration {steady(kernel_run.iter_times):.3f} ms "
+        f"through gram_pinv, {steady(plain.iter_times):.3f} ms through the plain pinv "
+        f"(PR 18: {PR18_ITER_MS} ms)")
+    if gap > PINV_FIT_ATOL:
+        fail("phase 4p: cp_als through the Gram kernel left the run through the plain pinv")
+    row["bound_by"] = "bytes" if row["bound_by"] == {"bytes"} else "operations"
+    return dict(row, max_abs_err=worst)
+
+
 def static_analysis() -> AnalysisResult:
     """Phase 0a: the port's analysis suite over this checkout, strict."""
     t0 = time.perf_counter()
@@ -1405,6 +1611,7 @@ class _IterationMarks:
 
 SYNC_ITERS = 2
 SYNC_WARNING = "synchronizing CUDA operation"   # torch's sync-debug warning text
+SYNC_PER_ITER = 2                               # the fit and diff readouts
 
 
 #: Kinds of call the host-sync rule's catalogue rests on, each run on the
@@ -1455,10 +1662,11 @@ def sync_probe(expr: str, device) -> tuple[bool, list]:
     return reported, [w for w in caught if SYNC_WARNING in str(w.message)]
 
 
-def sync_sites(st, engine, analysis: AnalysisResult, device) -> int:
+def sync_sites(st, engine, analysis: AnalysisResult, device) -> tuple[int, int]:
     """Phase 4y: torch's own log of the synchronising calls in SYNC_ITERS
-    cp_als iterations of `engine`, held against the `host-sync` rule.
-    Returns the float kernel's launches."""
+    cp_als iterations of `engine`, held against the `host-sync` rule, and
+    SYNC_PER_ITER per iteration, none in the pseudo-inverse.  Returns the
+    float kernel's and the Gram kernel's launches."""
     # torch's verdict on each kind of call beside the rule's: a call the
     # rule lets pass must not synchronise (that would be a gap in the rule).
     for expr in SYNC_PROBES:
@@ -1471,6 +1679,7 @@ def sync_sites(st, engine, analysis: AnalysisResult, device) -> int:
                  "lets it pass")
     mttkrp_kernel.launches = 0
     mttkrp_fixed_kernel.launches = 0
+    gram_pinv.launches = 0
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
         marked = _IterationMarks(engine, rec)
@@ -1479,10 +1688,12 @@ def sync_sites(st, engine, analysis: AnalysisResult, device) -> int:
             res = rt.cp_als(st, RANK, n_iters=SYNC_ITERS, engine=marked, seed=0)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    launches = mttkrp_kernel.launches
-    if launches != SYNC_ITERS * st.ndim or mttkrp_fixed_kernel.launches:
-        fail(f"phase 4y: the float kernel launched {launches} times (expected "
-             f"{SYNC_ITERS * st.ndim}), the fixed one {mttkrp_fixed_kernel.launches}")
+    launches, pinv_launches = mttkrp_kernel.launches, gram_pinv.launches
+    if (launches != SYNC_ITERS * st.ndim or mttkrp_fixed_kernel.launches
+            or pinv_launches != SYNC_ITERS * st.ndim):
+        fail(f"phase 4y: the float kernel launched {launches} times, the Gram kernel "
+             f"{pinv_launches} (expected {SYNC_ITERS * st.ndim} each), the fixed one "
+             f"{mttkrp_fixed_kernel.launches}")
     if len(marked.marks) != SYNC_ITERS or not all(math.isfinite(f) for f in res.fit_history):
         fail(f"phase 4y: {len(marked.marks)} iterations marked, fit {res.fit_history}")
     # A warning recorded before the k-th mark belongs to iteration k - 1
@@ -1491,10 +1702,19 @@ def sync_sites(st, engine, analysis: AnalysisResult, device) -> int:
              if SYNC_WARNING in str(w.message)]
     reported = {(f.path, f.line): f.reason for f in analysis.suppressed if f.rule == "host-sync"}
     port = ROOT / "src" / "repro_torch"
-    gaps = []
+    pinv_lines, pinv_start = inspect.getsourcelines(port_cpals._pinv)
+    in_pinv = {(Path(inspect.getsourcefile(port_cpals)).resolve(), line)
+               for line in range(pinv_start, pinv_start + len(pinv_lines))}
+    pinv_module = Path(inspect.getsourcefile(gram_pinv)).resolve()
+    gaps, pinv_syncs = [], []
     for k, label in enumerate(["set-up", *[f"iteration {i}" for i in range(SYNC_ITERS)]]):
         part = Counter((w.filename, w.lineno) for seg, w in syncs if seg == k)
-        log(f"[4y] {label}: {sum(part.values())} synchronising call(s)")
+        log(f"[4y] {label}: {sum(part.values())} synchronising call(s)"
+            + (f" (expected {SYNC_PER_ITER})" if k else ""))
+        if k and sum(part.values()) != SYNC_PER_ITER:
+            gaps.append(f"{label}: {sum(part.values())} waits, expected {SYNC_PER_ITER}")
+        pinv_syncs += [f"{Path(fn).name}:{ln}" for fn, ln in part
+                       if (Path(fn).resolve(), ln) in in_pinv or Path(fn).resolve() == pinv_module]
         for (filename, line), n in sorted(part.items()):
             path = Path(filename).resolve()
             if path.is_relative_to(port):
@@ -1512,9 +1732,12 @@ def sync_sites(st, engine, analysis: AnalysisResult, device) -> int:
         log(f"[4y]   other warning x{n}: {other}")
     log(f"[4y] {len(syncs)} synchronising call(s) in {SYNC_ITERS} iterations, "
         f"{sum(others.values())} other warning(s); fit {res.fit_history}")
+    if pinv_syncs:
+        fail(f"phase 4y: the pseudo-inverse waited on the host at {sorted(set(pinv_syncs))}")
     if gaps:
-        fail(f"phase 4y: synchronising sites the host-sync rule misses: {sorted(set(gaps))}")
-    return launches
+        fail(f"phase 4y: synchronising sites the host-sync rule misses, or a wrong count: "
+             f"{sorted(set(gaps))}")
+    return launches, pinv_launches
 
 
 def main() -> int:
@@ -1540,7 +1763,7 @@ def main() -> int:
 
     # 2. Build both kernels, one nvcc each, in parallel.
     t0 = time.perf_counter()
-    sources = ["mttkrp", "mttkrp_fixed"]
+    sources = ["mttkrp", "mttkrp_fixed", "gram_pinv"]
     _build.build(sources)
     log(f"[2] built csrc/{{{', '.join(sources)}}}.cu in {time.perf_counter() - t0:.1f}s")
     for name in sources:
@@ -1588,6 +1811,7 @@ def main() -> int:
     # 4. Float path: cp_als through the kernel engine, as the example builds it.
     mttkrp_kernel.launches = 0
     mttkrp_fixed_kernel.launches = 0
+    gram_pinv.launches = 0
     torch.cuda.reset_peak_memory_stats()
     base_bytes = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -1597,18 +1821,22 @@ def main() -> int:
     t_main = time.perf_counter() - t0
     launches = mttkrp_kernel.launches
     fixed_in_float = mttkrp_fixed_kernel.launches
+    pinv_launches = gram_pinv.launches
     peak_bytes = torch.cuda.max_memory_allocated()
     float_iter_times = res.iter_times
     log(f"[4] cp_als engine={res.engine} in {t_main:.1f}s, kernel launches={launches}, "
-        f"fixed kernel launches={fixed_in_float}")
+        f"fixed kernel launches={fixed_in_float}, Gram pseudo-inverse kernel launches="
+        f"{pinv_launches}")
     log(f"[4]   fit_history={res.fit_history}")
     log(f"[4]   diff_history={res.diff_history}")
     log(f"[4]   iter_times={res.iter_times}")
     log(f"[4]   device memory: resident before {base_bytes / 2**30:.3f} GiB, "
         f"peak {peak_bytes / 2**30:.3f} GiB")
-    if launches != N_ITERS * st_a.ndim or fixed_in_float != 0:
-        fail(f"kernel launched {launches} times in the main path, expected "
-             f"{N_ITERS * st_a.ndim}; the fixed kernel {fixed_in_float} times, expected 0")
+    if launches != N_ITERS * st_a.ndim or fixed_in_float != 0 \
+            or pinv_launches != N_ITERS * st_a.ndim:
+        fail(f"kernel launched {launches} times in the main path and the Gram kernel "
+             f"{pinv_launches}, expected {N_ITERS * st_a.ndim} each; the fixed kernel "
+             f"{fixed_in_float} times, expected 0")
     if len(res.fit_history) != N_ITERS or not all(math.isfinite(f) for f in res.fit_history):
         fail(f"fit_history is not {N_ITERS} finite values")
     for m, f in enumerate(res.factors):
@@ -1645,9 +1873,14 @@ def main() -> int:
     if small_gap > SMALL_ATOL:
         fail("the kernel engine on the card left the CPU path on TABLE1 nell2")
 
+    # 4p. The Gram pseudo-inverse kernel against its plain version.
+    t0 = time.perf_counter()
+    pinv_row = pinv_checks(st_a, engine, kernel_run, device)
+    log(f"[4p] phase took {time.perf_counter() - t0:.1f}s on {smi.splitlines()[0]}")
+
     # 4y. torch's sync log over phase 4's engine, against the host-sync rule.
     t0 = time.perf_counter()
-    sync_launches = sync_sites(st_a, engine, analysis, device)
+    sync_launches, sync_pinv_launches = sync_sites(st_a, engine, analysis, device)
     log(f"[4y] phase took {time.perf_counter() - t0:.1f}s")
 
     # 4d. The distributed engine at (a) on a one-rank NCCL mesh.
@@ -1794,18 +2027,23 @@ def main() -> int:
     log(f"[4w] phase took {time.perf_counter() - t0:.1f}s; probes launched the float kernel "
         f"{mttkrp_kernel.launches} times, the fixed one {mttkrp_fixed_kernel.launches} times")
 
-    # 4s and 4b. The serving path: it launches neither kernel.
+    # 4s and 4b. The serving path: it launches neither MTTKRP kernel; its
+    # batched pseudo-inverses go through the Gram kernel.
     mttkrp_kernel.launches = 0
     mttkrp_fixed_kernel.launches = 0
+    gram_pinv.launches = 0
     t0 = time.perf_counter()
     serve_checks(device)
     log(f"[4s] phase took {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     batched_scale(device)
     log(f"[4b] phase took {time.perf_counter() - t0:.1f}s")
-    if mttkrp_kernel.launches or mttkrp_fixed_kernel.launches:
-        fail(f"the serving path launched the float kernel {mttkrp_kernel.launches} times and "
-             f"the fixed one {mttkrp_fixed_kernel.launches} times (expected 0)")
+    log(f"[4s] the serving path launched the Gram pseudo-inverse kernel "
+        f"{gram_pinv.launches} times")
+    if mttkrp_kernel.launches or mttkrp_fixed_kernel.launches or not gram_pinv.launches:
+        fail(f"the serving path launched the float kernel {mttkrp_kernel.launches} times, "
+             f"the fixed one {mttkrp_fixed_kernel.launches} times (expected 0) and the Gram "
+             f"kernel {gram_pinv.launches} times (expected some)")
     smi_after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -1818,7 +2056,7 @@ def main() -> int:
     # iteration at case (a)'s shapes, summed over the modes; launches: the
     # main paths' runs, the float kernel's through `kernel` (phases 4 and 4y), `distributed`,
     # `hetero` and the tuned `auto` engine, the fixed kernel's over both of
-    # its runs).
+    # its runs, the Gram kernel's through `kernel` (phases 4 and 4y)).
     def entry(kind, rows, n_launches, err):
         return {**KERNELS[kind], "route": "cuda", "launches": n_launches, "max_abs_err": err,
                 "ms": sum(r["ms"] for r in rows),
@@ -1832,7 +2070,10 @@ def main() -> int:
                                         + hetero_launches + auto_launches,
                                         worst),
                                   entry("fixed", fixed_modes, fixed_launches,
-                                        float(worst_fixed))]}), flush=True)
+                                        float(worst_fixed)),
+                                  {**KERNELS["pinv"], "route": "cuda",
+                                   "launches": pinv_launches + sync_pinv_launches,
+                                   **pinv_row}]}), flush=True)
     # 7. Device line, last.
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

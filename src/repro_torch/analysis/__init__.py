@@ -17,10 +17,11 @@ engine (`engine.py`):
 
 **Dataflow tier**:
 
-- **Kernel signature contracts** (`shape_rules.py`) — the public MTTKRP
-  surface pinned in `kernel_contracts.json` (`--regen-contracts` to
-  re-pin).  The reference's shape proofs over an abstract interpreter have
-  no counterpart yet (docs/torch-static-analysis.md).
+- **Kernel contracts** (`shape_rules.py` over `dataflow.py`) — the public
+  MTTKRP surface pinned in `kernel_contracts.json` (`--regen-contracts` to
+  re-pin the signatures) and proven by abstract interpretation over torch's
+  ops and dtype lattice: every variant's return shape and dtype, every
+  `index_add_` target's rows, no narrow integer product.
 - **Integer widths** (`width_rules.py`) — unguarded int64→int32 index
   narrowing at the host/device seam, ALTO key word-geometry agreement
   across modules, fixed-point accumulator bounds re-derived from the QFormat

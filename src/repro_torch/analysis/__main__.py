@@ -26,7 +26,7 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
         description="PyTorch hot-path hygiene, cross-module invariant, and "
-                    "signature/width checks over the port "
+                    "kernel-contract/width checks over the port "
                     "(see docs/torch-static-analysis.md)")
     ap.add_argument("--strict", action="store_true",
                     help="also fail on suppression hygiene: unknown rule "
@@ -45,8 +45,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--tier", choices=("syntactic", "dataflow", "all"),
                     default="all",
                     help="run only one rule tier: 'syntactic' is the "
-                         "cheap per-node pass, 'dataflow' the signature and "
-                         "integer-width pass (default: all)")
+                         "cheap per-node pass, 'dataflow' the kernel-contract "
+                         "and integer-width pass (default: all)")
     ap.add_argument("--baseline", type=Path, default=None,
                     help="JSON report of accepted findings (from "
                          "--write-baseline); only findings NOT in it fail "

@@ -79,12 +79,12 @@ def _normalize(f: torch.Tensor, norm: str):
 
 
 def _pinv(v: torch.Tensor) -> torch.Tensor:
-    """Pseudo-inverse with the cutoff of `jnp.linalg.pinv`, 10·max(m, n)·eps
-    relative to each matrix's largest singular value (torch's default is
-    10× lower).  m and n are the last two dimensions, so a batched
-    (B, R, R) stack takes R's cutoff, not B's."""
-    # repro-lint: disable=host-sync -- torch's SVD reads its info flag back (2 syncs per call, one call per mode on the card) and torch has no sync-free pinv; the R×R solve keeps jnp.linalg.pinv's cutoff (ROADMAP Queue 3)
-    return torch.linalg.pinv(v, rtol=10 * max(v.shape[-2:]) * torch.finfo(v.dtype).eps)
+    """Pseudo-inverse of the (..., R, R) Gram Hadamard products with the
+    cutoff of `jnp.linalg.pinv`: the hand-written kernel on the card (no host
+    synchronisation), torch's SVD on the CPU (`kernels.gram_pinv`)."""
+    from ..kernels.gram_pinv import gram_pinv  # the kernels package imports core
+
+    return gram_pinv(v)
 
 
 def _coo_tensors(st: SparseTensor, device: torch.device):

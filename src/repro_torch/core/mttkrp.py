@@ -206,9 +206,10 @@ def _fixed_partials(qfactor_rows, qvalues, mode, matrix_frac, value_frac, prec_s
     gathered factor rows (entry at `mode` ignored); qvalues (...,).
     Returns int32 partial results in Q(.., matrix_frac - prec_shift)."""
     inputs = [m for m in range(len(qfactor_rows)) if m != mode]
-    part = qfactor_rows[inputs[0]].to(torch.int32)
+    part = qfactor_rows[inputs[0]]
     for m in inputs[1:]:
-        part = (part * qfactor_rows[m].to(torch.int32)) >> matrix_frac  # Alg. 2 l.11-12
+        # int32 products (Alg. 2 l.11-12): one int32 operand widens both.
+        part = (part * qfactor_rows[m].to(torch.int32)) >> matrix_frac
     part = part * qvalues[..., None].to(torch.int32)
     return part >> (value_frac + prec_shift)  # Alg. 2 l.14-15
 

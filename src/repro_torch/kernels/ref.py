@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernels' contracts (counterpart of
 `repro.kernels.ref`): per-task (T, S_mode, R) partial blocks before the
-global sum, float and fixed point, and that global sum.  The CPU path runs
-them; on the card they are what the CUDA kernels are held against.
+global sum, float and fixed point, that global sum, and the pseudo-inverse
+of CP-ALS's Gram Hadamard products.  The CPU path runs them; on the card
+they are what the CUDA kernels are held against.
 """
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import torch
 
 from ..core.mttkrp import _fixed_partials, chunk_offsets, index_add_drop, scatter_local
 
-__all__ = ["mttkrp_fixed_local_ref", "mttkrp_local_ref", "reduce_local"]
+__all__ = ["gram_pinv_ref", "mttkrp_fixed_local_ref", "mttkrp_local_ref", "reduce_local"]
 
 
 def mttkrp_local_ref(factors, task_chunk, coords_rel, values, *, mode: int,
@@ -57,3 +58,18 @@ def reduce_local(local, task_chunk, *, mode: int,
     rows = task_chunk[:, mode, None] * s_out + torch.arange(
         s_out, dtype=torch.int32, device=local.device)
     return index_add_drop(out_dim, rows.reshape(-1), local.reshape(-1, rank))
+
+
+def gram_pinv_rtol(rank: int) -> float:
+    """`jnp.linalg.pinv`'s cutoff for (rank, rank) float32 matrices,
+    10·max(m, n)·eps relative to the largest singular value (torch's default
+    is 10× lower).  m and n are the last two dimensions, so a batched
+    (B, R, R) stack takes R's cutoff, not B's."""
+    return 10 * rank * torch.finfo(torch.float32).eps
+
+
+def gram_pinv_ref(v: torch.Tensor) -> torch.Tensor:
+    """Pseudo-inverse of each (R, R) matrix of `v` by torch's SVD, with
+    `jnp.linalg.pinv`'s cutoff."""
+    # repro-lint: disable=host-sync -- plain version: CPU and tests only; the card's main path runs gram_pinv.cu
+    return torch.linalg.pinv(v, rtol=gram_pinv_rtol(v.shape[-1]))

@@ -502,9 +502,15 @@ def test_pins_equal_reference():
     ref_contracts = json.loads((REPO / "src/repro/analysis/kernel_contracts.json").read_text())
     port_contracts = load_contracts(REPO)
     assert port_contracts["qformat"] == ref_contracts["qformat"]
-    # Signature-pinned only: the shape contracts wait for a torch dataflow tier.
-    assert all(e["params"] is None and e["returns"] is None
-               for e in port_contracts["functions"].values())
+    # Every function that returns a tensor carries its shape contract; the two
+    # that return none (a numpy permutation, a dict of tensors) are pinned by
+    # signature only.
+    no_tensor = {"src/repro_torch/core/baselines.py::alto_order",
+                 "src/repro_torch/core/mttkrp.py::chunked_device_arrays"}
+    for key, e in port_contracts["functions"].items():
+        hand = [e["params"], e["returns"], e["index_adds"]]
+        assert all(x is None for x in hand) if key in no_tensor else \
+            all(x is not None for x in hand), key
 
 
 def test_live_tree_is_clean_strict():
@@ -519,7 +525,8 @@ def test_registered_rules():
     assert list(rules) == sorted(rules)
     assert set(rules) == {
         "alto-key-width", "byte-terms-arity", "dict-order-enumeration", "host-sync",
-        "import-orphans", "int32-index-width", "kernel-contract-drift", "nondeterminism",
+        "import-orphans", "int32-index-width", "kernel-contract-drift",
+        "kernel-shape-contract", "nondeterminism",
         "qformat-accumulator", "registry-docs", "schema-manifest", "suppression-missing-reason",
         "syntax-error", "unknown-suppression", "unused-suppression"}
     shared = set(rules) & set(ref_analysis.registered_rules())

@@ -13,7 +13,11 @@ absolute values of its terms, which bounds the reordering error of a float32
 sum of up to ~800 terms (2·(k-1)·2^-24 ≤ 1e-4) and is several times the
 typical error well beyond that.  The fixed-point kernel (paper Alg. 2) sums
 integers, so it is held to its plain version with `torch.equal`, every
-preset, every mode.
+preset, every mode.  The Gram pseudo-inverse kernel (float64 Jacobi) is
+held to its plain version (torch's float32 SVD on the card) at
+max(1e-5, κ·2^-17) of each matrix's largest entry, κ its condition number
+over the kept directions: the flat value where V is well conditioned, about
+64 float32 roundings magnified by κ where it is not.
 """
 import dataclasses
 
@@ -22,7 +26,15 @@ import pytest
 import torch
 
 import repro_torch as rt
-from repro_torch.kernels import mttkrp_fixed_kernel, mttkrp_kernel, tiles
+from repro_torch.core import cpals as port_cpals
+from repro_torch.kernels import (
+    KernelError,
+    _build,
+    gram_pinv,
+    mttkrp_fixed_kernel,
+    mttkrp_kernel,
+    tiles,
+)
 from repro_torch.kernels import ref as pref
 
 pytestmark = pytest.mark.gpu
@@ -388,6 +400,130 @@ def test_kernels_on_runs_of_equal_output_rows(cuda, kind, rank):
         got, want, terms = _local_pair(kind, factors, ct, dev, mode,
                                        nnz_per_task=dev["nnz_per_task"])
         _assert_pair(kind, got, want, terms)
+
+
+# ---------------------------------------------------------------------------
+# the Gram pseudo-inverse kernel (csrc/gram_pinv.cu)
+# ---------------------------------------------------------------------------
+
+NELL2_SHAPE = (12092, 9184, 28818)
+
+
+def _gram_stack(rank, n, seed, edit=None, rows=200):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        v = np.ones((rank, rank), np.float32)
+        for _m in range(2):
+            f = rng.uniform(0, 1, (rows, rank)).astype(np.float32)
+            if edit is not None:
+                edit(f)
+            v = v * (f.T @ f)
+        out.append(v)
+    return torch.from_numpy(np.stack(out))
+
+
+def _case_a_grams(device):
+    """V of every mode at case (a)'s first iteration: NELL-2's dims, R = 10,
+    the factors `init_factors` draws."""
+    fs = rt.init_factors(NELL2_SHAPE, 10, seed=0, device=device)
+    grams = [f.T @ f for f in fs]
+    return torch.stack([grams[(m + 1) % 3] * grams[(m + 2) % 3] for m in range(3)])
+
+
+def _zero_column(f):
+    f[:, 3] = 0.0
+
+
+def _equal_columns(f):
+    f[:, 6] = f[:, 5]
+
+
+PINV_STACKS = {
+    "case-a": lambda dev: _case_a_grams(dev),
+    "zero-column": lambda dev: _gram_stack(10, 4, 1, _zero_column).to(dev),
+    "equal-columns": lambda dev: _gram_stack(10, 4, 2, _equal_columns).to(dev),
+    "rank-160-global-scratch": lambda dev: _gram_stack(160, 2, 3, rows=400).to(dev),
+    "batched-4096-rank-5": lambda dev: _gram_stack(5, 4096, 4, rows=50).to(dev),
+}
+
+
+def _assert_pinv_close(got, want, v):
+    torch.cuda.synchronize()
+    v64 = v.double().cpu().numpy()
+    lam = np.abs(np.linalg.eigvalsh(v64))
+    top = lam.max(axis=-1, keepdims=True)
+    kept = np.where(lam > pref.gram_pinv_rtol(v.shape[-1]) * top, lam, np.inf)
+    kappa = top[..., 0] / kept.min(axis=-1)
+    tol = np.maximum(1e-5, kappa * 2.0 ** -17)
+    g, w = got.double().cpu().numpy(), want.double().cpu().numpy()
+    err = np.abs(g - w).max(axis=(-2, -1)) / np.abs(w).max(axis=(-2, -1))
+    assert bool((err <= tol).all()), f"max err/tol {(err / tol).max()}"
+
+
+@pytest.mark.parametrize("stack", sorted(PINV_STACKS))
+def test_gram_pinv_matches_plain(cuda, stack):
+    v = PINV_STACKS[stack](cuda).contiguous()
+    before = gram_pinv.launches
+    got = gram_pinv.gram_pinv(v)
+    assert gram_pinv.launches == before + 1
+    assert got.shape == v.shape and got.dtype == torch.float32 and got.is_cuda
+    assert torch.equal(got, got.mT)  # formed symmetric, bit for bit
+    _assert_pinv_close(got, pref.gram_pinv_ref(v), v)
+    if stack.startswith("rank-160"):
+        assert gram_pinv.plan_pinv(160, tiles.device_budget(cuda)).scratch_bytes > 0
+
+
+def test_gram_pinv_reads_one_triangle(cuda):
+    """An asymmetric last bit below the diagonal changes nothing."""
+    v = _gram_stack(10, 3, 5).to(cuda)
+    noisy = v.clone()
+    lower = torch.ones(10, 10, dtype=torch.bool, device=cuda).tril(-1)
+    noisy[:, lower] = torch.nextafter(noisy[:, lower], torch.full_like(noisy[:, lower], 1e30))
+    assert torch.equal(gram_pinv.gram_pinv(noisy), gram_pinv.gram_pinv(v))
+
+
+def test_gram_pinv_global_scratch_equals_shared(cuda):
+    """The same arithmetic from a global scratch buffer: the same bits."""
+    v = _gram_stack(10, 64, 6).to(cuda)
+    forced = gram_pinv.PinvLaunch(0, gram_pinv.work_bytes(10))
+    assert torch.equal(gram_pinv.gram_pinv(v, launch=forced), gram_pinv.gram_pinv(v))
+
+
+def test_gram_pinv_failures_raise(cuda, monkeypatch):
+    """A wrong layout, a rejected input and a failed build raise; cp_als on
+    the card never falls back to the plain version."""
+    v = _gram_stack(5, 2, 7).to(cuda)
+    before = gram_pinv.launches
+    with pytest.raises(KernelError, match="disagree"):
+        gram_pinv.gram_pinv(v, launch=gram_pinv.PinvLaunch(8))
+    with pytest.raises(TypeError, match="float32"):
+        gram_pinv.gram_pinv(v.double())
+    with pytest.raises(ValueError, match="must be"):
+        gram_pinv.gram_pinv(v[:, :, :4])
+    with pytest.raises(ValueError, match="contiguous"):
+        gram_pinv.gram_pinv(v.mT)
+    assert gram_pinv.launches == before
+
+    def broken(name):
+        raise KernelError(f"nvcc failed on csrc/{name}.cu")
+
+    monkeypatch.setattr(_build, "load", broken)
+    with pytest.raises(KernelError, match="gram_pinv"):
+        rt.cp_als(rt.table1_tensor("nell2"), 10, n_iters=1, engine="ref")
+
+
+def test_cp_als_kernel_engine_through_gram_pinv(cuda, monkeypatch):
+    """Three launches per iteration; fits within 1e-6 of the same run
+    through the plain pseudo-inverse on the card."""
+    st = rt.table1_tensor("nell2")
+    before = gram_pinv.launches
+    res = rt.cp_als(st, 10, n_iters=3, engine="kernel")
+    assert gram_pinv.launches - before == 9
+    monkeypatch.setattr(port_cpals, "_pinv", pref.gram_pinv_ref)
+    plain = rt.cp_als(st, 10, n_iters=3, engine="kernel")
+    assert gram_pinv.launches - before == 9
+    np.testing.assert_allclose(res.fit_history, plain.fit_history, rtol=0, atol=1e-6)
 
 
 @pytest.fixture
