@@ -8,9 +8,10 @@ Phases, each fatal on failure:
      0a. the port's static analysis (`repro_torch.analysis`, every rule,
      `--strict`) over this checkout: fatal on any unsuppressed finding;
      prints the findings and suppressions per rule and its seconds;
-  2. build the three CUDA kernels with nvcc (one process each, started
+  2. build the three CUDA sources with nvcc (one process each, started
      together) and print what ptxas reports for each kernel instantiation
-     (registers, spills);
+     (registers, spills); every width of the Gram pseudo-inverse's warp
+     tier must be listed with no stack frame and no spill;
   3. hold the float kernel against its plain PyTorch version on the card,
      every mode, local partials and the full op (with `nnz_per_task`, as
      the engines call them), printing each launch's tier, blocks per task
@@ -32,18 +33,25 @@ Phases, each fatal on failure:
      plain `chunked` engine on the card; then, on the small TABLE1 nell2,
      the kernel engine on the card must follow the CPU path that the CPU
      tests hold to the JAX reference; every mode update's pseudo-inverse
-     goes through the Gram pseudo-inverse kernel (`csrc/gram_pinv.cu`,
-     n_iters × 3 launches);
+     goes through the Gram pseudo-inverse kernel's warp tier
+     (`csrc/gram_pinv.cu`, n_iters × 3 launches);
      4p. (right after phase 4) the Gram pseudo-inverse kernel against its
      plain version (torch's SVD with jnp's cutoff) on the card at
-     max(1e-5, κ·2^-17) of each matrix's largest entry: the Grams of phase
-     4's factors at (a) (R = 10), rank-deficient stacks (a zero factor
-     column, two equal columns), R = 160 (past shared memory: the global
-     scratch path) and a batched stack of 4096 at R = 5; timed at (a)'s
-     three Grams in turns against the plain version and
-     `torch.linalg.pinv(hermitian=True)`; then cp_als through phase 4's
-     engine with the plain pseudo-inverse: fits within 1e-6 of phase 4's,
-     and both runs' steady iteration times;
+     max(1e-5, κ·2^-17) of each matrix's largest entry, bitwise symmetric,
+     through the warp tier and the block tier (the first design, forced):
+     the Grams of phase 4's factors at (a) (R = 10), rank-deficient stacks
+     (a zero factor column, two equal columns) and a batched stack of 4096
+     at R = 5; the warp tier also bit for bit against its host replay
+     (`gram_pinv.jacobi_replay`); R = 160 (the global scratch path); the
+     all-zero matrix (zeros) in both tiers; timed at (a)'s three Grams in
+     turns (plain, `torch.linalg.pinv(hermitian=True)`, warp tier, block
+     tier, then back), with the host µs per call, and at B = 8 and 4096,
+     R = 5 (the serving path's stacks) in both tiers; then cp_als through
+     phase 4's engine with the block tier and with the plain
+     pseudo-inverse, the three runs (with phase 4's warp-tier run) held to
+     each other: fits within 1e-6, factors and λ within max(1e-5, κ·2^-17)
+     of their largest entry (the fits at (a) are about 1e-7, so the factors
+     are the discriminating check), and the runs' steady iteration times;
      4y. (right after phase 4p, on phase 4's `kernel` engine at (a)) each kind of
      call the `host-sync` rule's catalogue rests on runs under
      `torch.cuda.set_sync_debug_mode("warn")` beside the rule's verdict on
@@ -267,7 +275,6 @@ F64_FLOPS = 34e12                  # H100 SXM data sheet, float64 outside the te
 # magnified by κ, the condition number over the kept directions, where not.
 PINV_ATOL, PINV_KAPPA = 1e-5, 2.0 ** -17
 PINV_FIT_ATOL = 1e-6               # cp_als fits, gram_pinv against the plain pseudo-inverse
-PR18_ITER_MS = "12.49–13.81"       # steady `kernel` iterations at (a), PR 18 run 2
 
 
 def log(msg: str) -> None:
@@ -346,6 +353,10 @@ def ptxas_summary(build_log: str) -> list[str]:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
+            warp = re.search(r"gram_pinv_warp_kernelILi(\d+)E", mangled)
+            if warp:
+                name, spills = f"gram_pinv_warp_kernel<W={warp.group(1)}>", ""
+                continue
             kind = next((k for k in ("task_kernel", "gram_pinv_kernel") if k in mangled),
                         "global_kernel")
             pol = re.search(r"FixedPolicyI(\w)(\w)E", mangled)
@@ -360,6 +371,28 @@ def ptxas_summary(build_log: str) -> list[str]:
             lines.append(f"{name}: {line.split('info    :')[-1].strip()}; {spills}")
             name = None
     return lines
+
+
+#: Widths the warp tier is instantiated at (`prism_gram_pinv_warp_f32`).
+WARP_WIDTHS = tuple(range(2, gram_pinv.WARP_MAX_RANK + 1, 2))
+
+
+def check_warp_spills(summary: list[str]) -> None:
+    """Phase 2: every warp-tier instantiation is listed and keeps its
+    matrix in registers: no stack frame, no spill."""
+    seen = {}
+    for line in summary:
+        m = re.match(r"gram_pinv_warp_kernel<W=(\d+)>: .*; (\d+) bytes stack frame, "
+                     r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            seen[int(m.group(1))] = tuple(int(x) for x in m.groups()[1:])
+    missing = sorted(set(WARP_WIDTHS) - set(seen))
+    spilled = {w: t for w, t in seen.items() if any(t)}
+    log(f"[2]   gram_pinv warp tier: {len(seen)} widths, stack frame and spills "
+        f"{'0 at every width' if not spilled else spilled}")
+    if missing or spilled:
+        fail(f"phase 2: warp-tier widths missing from ptxas's report {missing}, or with a "
+             f"stack frame or spills (bytes: stack, stores, loads) {spilled}")
 
 
 def plan_of(st, ct, mode, factor_bytes=4, value_bytes=4, tier=None) -> tiles.LaunchPlan:
@@ -1443,58 +1476,50 @@ def kept_kappa(v: np.ndarray) -> np.ndarray:
     return top[..., 0] / kept.min(axis=-1)
 
 
-def jacobi_rotations(v: np.ndarray) -> int:
-    """The rotations the kernel's round-robin Jacobi applies to one matrix
-    (its float64 arithmetic and criterion, replayed on the host): what this
-    input needs, for the operations bound."""
-    r = v.shape[0]
-    a = np.triu(v).astype(np.float64)
-    a = a + np.triu(a, 1).T
-    m = r + (r & 1)
-    total = 0
-    for _sweep in range(40):
-        rotated = 0
-        for k in range(m - 1):
-            pairs = [(k, m - 1), *(((k + i) % (m - 1), (k - i) % (m - 1))
-                                   for i in range(1, m // 2))]
-            rots = []
-            for p, q in (sorted(pq) for pq in pairs):
-                if q >= r:
-                    continue
-                apq, app, aqq = a[p, q], a[p, p], a[q, q]
-                if apq != 0.0 and abs(apq) > np.finfo(np.float64).eps * math.sqrt(abs(app * aqq)):
-                    theta = (aqq - app) / (2.0 * apq)
-                    t = math.copysign(1.0, theta) / (abs(theta) + math.sqrt(1.0 + theta * theta))
-                    c = 1.0 / math.sqrt(1.0 + t * t)
-                    rots.append((p, q, c, t * c))
-            for p, q, c, sn in rots:
-                a[:, [p, q]] = a[:, [p, q]] @ np.array([[c, sn], [-sn, c]])
-            for p, q, c, sn in rots:
-                a[[p, q], :] = np.array([[c, -sn], [sn, c]]) @ a[[p, q], :]
-                a[p, q] = a[q, p] = 0.0
-            rotated += len(rots)
-        total += rotated
-        if not rotated:
-            break
-    return total
+def pinv_ops(n: int, r: int) -> int:
+    """Float64 operations of the function on n R×R matrices, whatever
+    design computes it: a symmetric eigendecomposition with its vectors
+    (9·R³, the symmetric QR algorithm's count, Golub & Van Loan §8.3), the
+    vectors scaled by 1/λ (R²) and the symmetric product W·diag(1/λ)·Wᵀ
+    (2·R per entry of its upper triangle: R²·(R + 1))."""
+    return n * (9 * r ** 3 + r * r + r * r * (r + 1))
 
 
 def pinv_bound(v: np.ndarray) -> tuple[float, str]:
     """Least time for one launch on the stack `v`: each matrix read once
-    and written once (2·R²·4 B), over the memory rate; the float64
-    operations it does (18·R per rotation the data need, 3·R³ to form the
-    result), over the float64 rate."""
+    and written once (2·R²·4 B) over the memory rate, or `pinv_ops` over
+    the float64 rate, whichever is larger."""
     r = v.shape[-1]
-    nbytes = 2 * v.shape[0] * r * r * 4
-    ops = sum(18 * r * jacobi_rotations(x) + 3 * r ** 3 for x in v)
-    return bound(nbytes, ops, F64_FLOPS)
+    return bound(2 * v.shape[0] * r * r * 4, pinv_ops(v.shape[0], r), F64_FLOPS)
 
 
-def hold_pinv(label: str, v: torch.Tensor) -> float:
-    """gram_pinv on `v` against the plain version, per matrix at
-    max(PINV_ATOL, κ·PINV_KAPPA) of its largest entry.  Returns the largest
-    absolute difference."""
-    got = gram_pinv.gram_pinv(v)
+def warp_work(v: np.ndarray) -> str:
+    """What the warp tier's one-sided Jacobi does on `v`, from its host
+    replay (a diagnostic beside the bound, which does not use it): rounds,
+    pair checks and rotations, and its float64 operations (6·R per check,
+    12·R per rotation, 2·R² for the eigenvalues, 3·R per entry of the
+    result's upper triangle) against the function's `pinv_ops`."""
+    n, r = v.shape[0], v.shape[-1]
+    rp = gram_pinv.jacobi_replay(v)
+    ops = int(6 * r * rp.checks.sum() + 12 * r * rp.rotations.sum()
+              + n * (2 * r * r + 3 * r * r * (r + 1) // 2))
+    return (f"warp tier's own work (host replay): {int(rp.rounds.sum())} rounds, "
+            f"{int(rp.checks.sum())} pair checks, {int(rp.rotations.sum())} rotations, "
+            f"{ops} float64 operations = {ops / pinv_ops(n, r):.2f}× the function's "
+            f"{pinv_ops(n, r)}")
+
+
+def pinv_plan(rank: int, tier: str | None = None) -> gram_pinv.PinvLaunch:
+    return gram_pinv.plan_pinv(rank, tiles.device_budget(torch.device("cuda", 0)), tier)
+
+
+def hold_pinv(label: str, v: torch.Tensor, tier: str | None = None) -> float:
+    """gram_pinv on `v` (through `tier`, the plan's otherwise) against the
+    plain version, per matrix at max(PINV_ATOL, κ·PINV_KAPPA) of its
+    largest entry, and bitwise symmetric; on the warp tier, also bit for
+    bit against its host replay.  Returns the largest absolute difference."""
+    plan = pinv_plan(v.shape[-1], tier)
+    got = gram_pinv.gram_pinv(v, launch=plan)
     want = kref.gram_pinv_ref(v)
     torch.cuda.synchronize()
     g, w = got.double().cpu().numpy(), want.double().cpu().numpy()
@@ -1503,12 +1528,21 @@ def hold_pinv(label: str, v: torch.Tensor) -> float:
     rel = np.abs(g - w).max(axis=(-2, -1)) / np.abs(w).max(axis=(-2, -1))
     worst = float(np.abs(g - w).max())
     symmetric = bool(torch.equal(got, got.mT))
-    plan = gram_pinv.plan_pinv(v.shape[-1], tiles.device_budget(v.device))
+    replay = ""
+    if plan.tier == "warp":
+        sample = v[:64].cpu().numpy()
+        replayed = np.array_equal(gram_pinv.jacobi_replay(sample).out.view(np.int32),
+                                  got[:64].cpu().numpy().view(np.int32))
+        replay = f"; bit-equal to its host replay on {len(sample)}: {replayed}"
+        if not replayed:
+            fail(f"phase 4p: the warp tier left its host replay on {label}")
     log(f"[4p]   {label}: {tuple(v.shape)}, {plan}; "
         f"max |kernel - plain| {worst:.3e}, max relative {rel.max():.3e} (tolerance "
-        f"{tol.min():.3e}..{tol.max():.3e}, κ up to {kappa.max():.1f}); symmetric {symmetric}")
+        f"{tol.min():.3e}..{tol.max():.3e}, κ up to {kappa.max():.1f}); symmetric {symmetric}"
+        f"{replay}")
     if not (rel <= tol).all() or not symmetric:
-        fail(f"phase 4p: the Gram pseudo-inverse kernel left its plain version on {label}")
+        fail(f"phase 4p: the Gram pseudo-inverse kernel ({plan.tier}) left its plain version "
+             f"on {label}")
     return worst
 
 
@@ -1520,55 +1554,111 @@ def _equal_columns(f):
     f[:, 6] = f[:, 5]
 
 
+def host_us(fn, reps: int = 50) -> float:
+    """Host microseconds per enqueue: `reps` calls after a warm-up, without
+    a synchronisation inside the clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return us
+
+
 def pinv_checks(st, engine, kernel_run, device) -> dict:
-    """Phase 4p.  Returns the kernels line's numbers for the Gram kernel:
-    ms/plain_ms/library_ms/bound_ms summed over (a)'s three mode updates."""
+    """Phase 4p.  Returns the kernels line's numbers for the Gram kernel
+    (the warp tier, this design): ms/plain_ms/library_ms/bound_ms summed
+    over (a)'s three mode updates."""
     grams = mode_grams(kernel_run.factors).contiguous()
     worst = hold_pinv("(a) the Grams of phase 4's factors, R = 10", grams)
-    for label, v in [
-            ("a zero factor column", gram_stack(RANK, 4, 1, edit=_zero_column)),
-            ("two equal factor columns", gram_stack(RANK, 4, 2, edit=_equal_columns)),
-            ("R = 160", gram_stack(160, 2, 3, rows=400)),
-            ("B = 4096, R = 5", gram_stack(5, 4096, 4, rows=50))]:
-        hold_pinv(label, torch.from_numpy(v).to(device))
-    # (a)'s three V, one launch each as cp_als makes them, in turns.
+    hold_pinv("(a) the Grams of phase 4's factors, R = 10", grams, "shared")
+    stacks = [("a zero factor column", gram_stack(RANK, 4, 1, edit=_zero_column)),
+              ("two equal factor columns", gram_stack(RANK, 4, 2, edit=_equal_columns)),
+              ("B = 4096, R = 5", gram_stack(5, 4096, 4, rows=50))]
+    for label, v in stacks:
+        for tier in ("warp", "shared"):
+            hold_pinv(label, torch.from_numpy(v).to(device), tier)
+    hold_pinv("R = 160", torch.from_numpy(gram_stack(160, 2, 3, rows=400)).to(device))
+    zero = torch.zeros(3, RANK, RANK, device=device)
+    for tier in ("warp", "shared"):
+        if not bool((gram_pinv.gram_pinv(zero, launch=pinv_plan(RANK, tier)) == 0).all()):
+            fail(f"phase 4p: the {tier} tier's pseudo-inverse of a zero matrix is not zero")
+    log("[4p]   the all-zero matrix: both tiers give zeros")
+    # (a)'s three V, one launch each as cp_als makes them, in turns: plain,
+    # library, this design, the first design (block tier), then back.
     rtol = kref.gram_pinv_rtol(RANK)
+    warp, block = pinv_plan(RANK), pinv_plan(RANK, "shared")
     row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by=set())
     for mode in range(st.ndim):
         v = grams[mode].contiguous()
-        p1, l1, k1, k2, l2, p2 = (
+        p1, l1, k1, e1, e2, k2, l2, p2 = (
             time_ms(lambda v=v: kref.gram_pinv_ref(v), 50),
             time_ms(lambda v=v: torch.linalg.pinv(v, rtol=rtol, hermitian=True), 50),
-            time_ms(lambda v=v: gram_pinv.gram_pinv(v), 50),
-            time_ms(lambda v=v: gram_pinv.gram_pinv(v), 50),
+            time_ms(lambda v=v: gram_pinv.gram_pinv(v, launch=warp), 50),
+            time_ms(lambda v=v: gram_pinv.gram_pinv(v, launch=block), 50),
+            time_ms(lambda v=v: gram_pinv.gram_pinv(v, launch=block), 50),
+            time_ms(lambda v=v: gram_pinv.gram_pinv(v, launch=warp), 50),
             time_ms(lambda v=v: torch.linalg.pinv(v, rtol=rtol, hermitian=True), 50),
             time_ms(lambda v=v: kref.gram_pinv_ref(v), 50))
+        hw, hb = (host_us(lambda v=v: gram_pinv.gram_pinv(v, launch=warp)),
+                  host_us(lambda v=v: gram_pinv.gram_pinv(v, launch=block)))
         b_ms, b_by = pinv_bound(v[None].cpu().numpy())
-        log(f"[4p]   mode {mode} V (1, {RANK}, {RANK}): kernel {k1:.4f}/{k2:.4f} ms, plain "
-            f"(SVD) {p1:.4f}/{p2:.4f} ms, torch.linalg.pinv(hermitian=True) {l1:.4f}/{l2:.4f} "
-            f"ms, bound {b_ms:.3e} ms ({b_by})")
+        log(f"[4p]   mode {mode} V (1, {RANK}, {RANK}): warp tier {k1:.4f}/{k2:.4f} ms, block "
+            f"tier (first design) {e1:.4f}/{e2:.4f} ms, plain (SVD) {p1:.4f}/{p2:.4f} ms, "
+            f"torch.linalg.pinv(hermitian=True) {l1:.4f}/{l2:.4f} ms, bound {b_ms:.3e} ms "
+            f"({b_by}); host {hw:.1f} µs per warp-tier call, {hb:.1f} µs per block-tier call; "
+            f"{warp_work(v[None].cpu().numpy())}")
         row["ms"] += (k1 + k2) / 2
         row["plain_ms"] += (p1 + p2) / 2
         row["library_ms"] += (l1 + l2) / 2
         row["bound_ms"] += b_ms
         row["bound_by"].add(b_by)
-    big = torch.from_numpy(gram_stack(5, 4096, 4, rows=50)).to(device)
-    log(f"[4p]   B = 4096, R = 5 (the serving path's stacks): kernel "
-        f"{time_ms(lambda: gram_pinv.gram_pinv(big), 20):.4f} ms, plain "
-        f"{time_ms(lambda: kref.gram_pinv_ref(big), 5):.4f} ms per call")
-    # cp_als through the plain pseudo-inverse, on phase 4's engine.
-    port_cpals._pinv, kernel_pinv = kref.gram_pinv_ref, port_cpals._pinv
-    try:
-        plain = rt.cp_als(st, RANK, n_iters=N_ITERS, engine=engine, seed=0)
-    finally:
-        port_cpals._pinv = kernel_pinv
-    gap = max(abs(a - b) for a, b in zip(kernel_run.fit_history, plain.fit_history, strict=True))
-    log(f"[4p]   cp_als at (a), |fit gram_pinv - fit plain pinv| per run max={gap:.3e} "
-        f"(tolerance {PINV_FIT_ATOL}); steady iteration {steady(kernel_run.iter_times):.3f} ms "
-        f"through gram_pinv, {steady(plain.iter_times):.3f} ms through the plain pinv "
-        f"(PR 18: {PR18_ITER_MS} ms)")
-    if gap > PINV_FIT_ATOL:
-        fail("phase 4p: cp_als through the Gram kernel left the run through the plain pinv")
+    # The serving path's stacks: a bucket of 8 and 4096 at R = 5, in turns.
+    for n in (8, 4096):
+        big = torch.from_numpy(gram_stack(5, n, 4, rows=50)).to(device)
+        warp5, block5 = pinv_plan(5), pinv_plan(5, "shared")
+        k1, e1, e2, k2 = (time_ms(lambda: gram_pinv.gram_pinv(big, launch=warp5), 20),
+                          time_ms(lambda: gram_pinv.gram_pinv(big, launch=block5), 20),
+                          time_ms(lambda: gram_pinv.gram_pinv(big, launch=block5), 20),
+                          time_ms(lambda: gram_pinv.gram_pinv(big, launch=warp5), 20))
+        b_ms, b_by = pinv_bound(big.cpu().numpy())
+        log(f"[4p]   B = {n}, R = 5 (the serving path's stacks): warp tier {k1:.4f}/{k2:.4f} ms, "
+            f"block tier {e1:.4f}/{e2:.4f} ms, plain "
+            f"{time_ms(lambda: kref.gram_pinv_ref(big), 5):.4f} ms per call, bound {b_ms:.3e} "
+            f"ms ({b_by}); host {host_us(lambda: gram_pinv.gram_pinv(big, launch=warp5)):.1f} "
+            f"µs per warp-tier call; {warp_work(big.cpu().numpy())}")
+    # cp_als through the first design and through the plain pseudo-inverse,
+    # on phase 4's engine, and phase 4's run through the warp tier, held to
+    # each other.
+    kernel_pinv = port_cpals._pinv
+    runs = {"warp tier": kernel_run}
+    for name, fn in [("block tier", lambda v: gram_pinv.gram_pinv(v, launch=block)),
+                     ("plain pinv", kref.gram_pinv_ref)]:
+        port_cpals._pinv = fn
+        try:
+            runs[name] = rt.cp_als(st, RANK, n_iters=N_ITERS, engine=engine, seed=0)
+        finally:
+            port_cpals._pinv = kernel_pinv
+    kappa = solve_kappa([f.cpu() for f in runs["plain pinv"].factors])
+    tol = max(PINV_ATOL, PINV_KAPPA * kappa)
+    names = list(runs)
+    for i, name_a in enumerate(names):
+        for name_b in names[i + 1:]:
+            a, b = runs[name_a], runs[name_b]
+            fit = max(abs(x - y) for x, y in zip(a.fit_history, b.fit_history, strict=True))
+            factor = max(float((x - y).abs().max() / y.abs().max())
+                         for x, y in zip(a.factors, b.factors, strict=True))
+            lam = float((a.lam - b.lam).abs().max() / b.lam.abs().max())
+            log(f"[4p]   cp_als at (a), {name_a} against {name_b}: max |Δ fit|={fit:.3e} "
+                f"(tolerance {PINV_FIT_ATOL}; fits {min(b.fit_history):.3e}.."
+                f"{max(b.fit_history):.3e}), max |Δ factor| / max |factor|={factor:.3e}, "
+                f"max |Δλ| / max |λ|={lam:.3e} (tolerance {tol:.3e}, κ={kappa:.1f})")
+            if fit > PINV_FIT_ATOL or factor > tol or lam > tol:
+                fail(f"phase 4p: cp_als through the {name_a} left the run through the {name_b}")
+    log("[4p]   steady cp_als iteration at (a): "
+        + ", ".join(f"{steady(r.iter_times):.3f} ms through the {n}" for n, r in runs.items()))
     row["bound_by"] = "bytes" if row["bound_by"] == {"bytes"} else "operations"
     return dict(row, max_abs_err=worst)
 
@@ -1767,8 +1857,11 @@ def main() -> int:
     _build.build(sources)
     log(f"[2] built csrc/{{{', '.join(sources)}}}.cu in {time.perf_counter() - t0:.1f}s")
     for name in sources:
-        for line in ptxas_summary(_build.build_log(name)):
+        summary = ptxas_summary(_build.build_log(name))
+        for line in summary:
             log(f"[2]   {name}: {line}")
+        if name == "gram_pinv":
+            check_warp_spills(summary)
 
     # 3. Kernels vs plain, cases (a), (b), (c).
     t0 = time.perf_counter()
@@ -1832,6 +1925,9 @@ def main() -> int:
     log(f"[4]   iter_times={res.iter_times}")
     log(f"[4]   device memory: resident before {base_bytes / 2**30:.3f} GiB, "
         f"peak {peak_bytes / 2**30:.3f} GiB")
+    log(f"[4]   the pseudo-inverse's plan at R = {RANK}: {pinv_plan(RANK)}")
+    if pinv_plan(RANK).tier != "warp":
+        fail(f"the pseudo-inverse at R = {RANK} does not take the warp tier")
     if launches != N_ITERS * st_a.ndim or fixed_in_float != 0 \
             or pinv_launches != N_ITERS * st_a.ndim:
         fail(f"kernel launched {launches} times in the main path and the Gram kernel "

@@ -164,8 +164,8 @@ def new_output(plan: LaunchPlan, shape, dtype, device) -> torch.Tensor:
 
 def raise_on(rc: int, lib, name: str, plan: LaunchPlan) -> None:
     if rc == _LAYOUT_MISMATCH:
-        raise KernelError(f"{name} kernel refused the launch: the plan's {plan.smem_bytes} B "
-                           f"of shared memory disagree with the kernel's layout ({plan})")
+        raise KernelError(f"{name} kernel refused the launch: the plan disagrees with the "
+                           f"kernel's layout ({plan})")
     if rc != 0:
         raise KernelError(f"{name} kernel launch failed: "
                            f"{lib.prism_cuda_error_string(rc).decode()} ({rc}; {plan})")

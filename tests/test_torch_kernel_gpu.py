@@ -443,9 +443,12 @@ PINV_STACKS = {
     "case-a": lambda dev: _case_a_grams(dev),
     "zero-column": lambda dev: _gram_stack(10, 4, 1, _zero_column).to(dev),
     "equal-columns": lambda dev: _gram_stack(10, 4, 2, _equal_columns).to(dev),
+    "rank-33-shared": lambda dev: _gram_stack(33, 3, 8, rows=100).to(dev),
     "rank-160-global-scratch": lambda dev: _gram_stack(160, 2, 3, rows=400).to(dev),
     "batched-4096-rank-5": lambda dev: _gram_stack(5, 4096, 4, rows=50).to(dev),
 }
+#: The tier `plan_pinv` picks for each stack on the H100.
+PINV_TIERS = {"rank-33-shared": "shared", "rank-160-global-scratch": "global"}
 
 
 def _assert_pinv_close(got, want, v):
@@ -461,17 +464,58 @@ def _assert_pinv_close(got, want, v):
     assert bool((err <= tol).all()), f"max err/tol {(err / tol).max()}"
 
 
+def _pinv_plan(dev, rank, tier=None):
+    return gram_pinv.plan_pinv(rank, tiles.device_budget(dev), tier)
+
+
 @pytest.mark.parametrize("stack", sorted(PINV_STACKS))
 def test_gram_pinv_matches_plain(cuda, stack):
     v = PINV_STACKS[stack](cuda).contiguous()
+    assert _pinv_plan(cuda, v.shape[-1]).tier == PINV_TIERS.get(stack, "warp")
     before = gram_pinv.launches
     got = gram_pinv.gram_pinv(v)
     assert gram_pinv.launches == before + 1
     assert got.shape == v.shape and got.dtype == torch.float32 and got.is_cuda
     assert torch.equal(got, got.mT)  # formed symmetric, bit for bit
     _assert_pinv_close(got, pref.gram_pinv_ref(v), v)
-    if stack.startswith("rank-160"):
-        assert gram_pinv.plan_pinv(160, tiles.device_budget(cuda)).scratch_bytes > 0
+
+
+@pytest.mark.parametrize("n", [1, 3, 4096])
+@pytest.mark.parametrize("rank", [1, 2, 5, 10, 16, 31, 32])
+def test_gram_pinv_warp_tier(cuda, rank, n):
+    """The warp tier at every width class, B not a multiple of the warps
+    per block: within the tolerance of the plain version, symmetric, and bit
+    for bit its host replay (on the first 8 matrices)."""
+    v = _gram_stack(rank, n, 100 * rank + n, rows=max(50, 3 * rank)).to(cuda)
+    plan = _pinv_plan(cuda, rank)
+    assert plan == gram_pinv.PinvLaunch("warp")
+    before = gram_pinv.launches
+    got = gram_pinv.gram_pinv(v)
+    assert gram_pinv.launches == before + 1
+    assert torch.equal(got, got.mT)
+    _assert_pinv_close(got, pref.gram_pinv_ref(v), v)
+    replay = gram_pinv.jacobi_replay(v[:8].cpu().numpy())
+    assert np.array_equal(replay.out.view(np.int32), got[:8].cpu().numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("tier", ["warp", "shared"])
+def test_gram_pinv_all_zero_matrix(cuda, tier):
+    v = torch.zeros(5, 10, 10, device=cuda)
+    got = gram_pinv.gram_pinv(v, launch=_pinv_plan(cuda, 10, tier))
+    assert torch.equal(got, torch.zeros_like(v))
+
+
+@pytest.mark.parametrize("stack", ["case-a", "zero-column", "equal-columns", "batched-4096-rank-5"])
+def test_gram_pinv_warp_and_block_tiers_agree(cuda, stack):
+    """The same V through the warp tier and the first design (the shared
+    tier, forced): each within the tolerance of the other."""
+    v = PINV_STACKS[stack](cuda).contiguous()
+    rank = v.shape[-1]
+    before = gram_pinv.launches
+    warp = gram_pinv.gram_pinv(v, launch=_pinv_plan(cuda, rank, "warp"))
+    block = gram_pinv.gram_pinv(v, launch=_pinv_plan(cuda, rank, "shared"))
+    assert gram_pinv.launches == before + 2
+    _assert_pinv_close(warp, block, v)
 
 
 def test_gram_pinv_reads_one_triangle(cuda):
@@ -480,23 +524,31 @@ def test_gram_pinv_reads_one_triangle(cuda):
     noisy = v.clone()
     lower = torch.ones(10, 10, dtype=torch.bool, device=cuda).tril(-1)
     noisy[:, lower] = torch.nextafter(noisy[:, lower], torch.full_like(noisy[:, lower], 1e30))
-    assert torch.equal(gram_pinv.gram_pinv(noisy), gram_pinv.gram_pinv(v))
+    for tier in ("warp", "shared"):
+        plan = _pinv_plan(cuda, 10, tier)
+        assert torch.equal(gram_pinv.gram_pinv(noisy, launch=plan),
+                           gram_pinv.gram_pinv(v, launch=plan))
 
 
 def test_gram_pinv_global_scratch_equals_shared(cuda):
     """The same arithmetic from a global scratch buffer: the same bits."""
     v = _gram_stack(10, 64, 6).to(cuda)
-    forced = gram_pinv.PinvLaunch(0, gram_pinv.work_bytes(10))
-    assert torch.equal(gram_pinv.gram_pinv(v, launch=forced), gram_pinv.gram_pinv(v))
+    assert torch.equal(gram_pinv.gram_pinv(v, launch=_pinv_plan(cuda, 10, "global")),
+                       gram_pinv.gram_pinv(v, launch=_pinv_plan(cuda, 10, "shared")))
 
 
 def test_gram_pinv_failures_raise(cuda, monkeypatch):
-    """A wrong layout, a rejected input and a failed build raise; cp_als on
-    the card never falls back to the plain version."""
+    """A wrong layout in either design, a rejected input and a failed build
+    raise; cp_als on the card never falls back to the plain version."""
     v = _gram_stack(5, 2, 7).to(cuda)
     before = gram_pinv.launches
     with pytest.raises(KernelError, match="disagree"):
-        gram_pinv.gram_pinv(v, launch=gram_pinv.PinvLaunch(8))
+        gram_pinv.gram_pinv(v, launch=gram_pinv.PinvLaunch("shared", smem_bytes=8))
+    with pytest.raises(KernelError, match="disagree"):  # R = 33 is past a warp
+        gram_pinv.gram_pinv(_gram_stack(33, 1, 7, rows=100).to(cuda),
+                            launch=gram_pinv.PinvLaunch("warp"))
+    with pytest.raises(ValueError, match="tier"):
+        gram_pinv.gram_pinv(v, launch=gram_pinv.PinvLaunch("registers"))
     with pytest.raises(TypeError, match="float32"):
         gram_pinv.gram_pinv(v.double())
     with pytest.raises(ValueError, match="must be"):
@@ -514,16 +566,30 @@ def test_gram_pinv_failures_raise(cuda, monkeypatch):
 
 
 def test_cp_als_kernel_engine_through_gram_pinv(cuda, monkeypatch):
-    """Three launches per iteration; fits within 1e-6 of the same run
-    through the plain pseudo-inverse on the card."""
+    """Three warp-tier launches per iteration; fits within 1e-6 of the same
+    run through the plain pseudo-inverse on the card, and factors within
+    max(1e-5, κ·2^-17) of their largest entry (κ: the worst V's condition
+    number; fits here are about 1e-4, so the factors are the sharper test)."""
     st = rt.table1_tensor("nell2")
+    plans = []
+    plan_pinv = gram_pinv.plan_pinv
+    monkeypatch.setattr(gram_pinv, "plan_pinv", lambda *a, **k: plans.append(plan_pinv(*a, **k))
+                        or plans[-1])
     before = gram_pinv.launches
     res = rt.cp_als(st, 10, n_iters=3, engine="kernel")
     assert gram_pinv.launches - before == 9
+    assert [p.tier for p in plans] == ["warp"] * 9
     monkeypatch.setattr(port_cpals, "_pinv", pref.gram_pinv_ref)
     plain = rt.cp_als(st, 10, n_iters=3, engine="kernel")
     assert gram_pinv.launches - before == 9
     np.testing.assert_allclose(res.fit_history, plain.fit_history, rtol=0, atol=1e-6)
+    fs = [f.double().cpu().numpy() for f in plain.factors]
+    grams = [f.T @ f for f in fs]
+    kappa = max(np.linalg.cond(np.prod([g for k, g in enumerate(grams) if k != mode], axis=0))
+                for mode in range(len(fs)))
+    for got, want in zip(res.factors, fs, strict=True):
+        gap = np.abs(got.double().cpu().numpy() - want).max() / np.abs(want).max()
+        assert gap <= max(1e-5, kappa * 2.0 ** -17), (gap, kappa)
 
 
 @pytest.fixture

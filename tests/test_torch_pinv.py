@@ -1,7 +1,9 @@
 """The pseudo-inverse CP-ALS takes of its Gram Hadamard products: the plain
 version (`kernels/ref.py::gram_pinv_ref`, torch's SVD with jnp's cutoff)
-against `jnp.linalg.pinv` on the CPU, and the dispatch of
-`core/cpals.py::_pinv`, which sends CPU tensors to the plain version and
+and the warp tier's host replay (`kernels/gram_pinv.py::jacobi_replay`,
+the CUDA kernel's float64 arithmetic in its order) against
+`jnp.linalg.pinv` on the CPU, the tiers `plan_pinv` picks, and the dispatch
+of `core/cpals.py::_pinv`, which sends CPU tensors to the plain version and
 never to the CUDA kernel (`kernels/gram_pinv.py`; its tests on the card are
 in tests/test_torch_kernel_gpu.py).
 
@@ -99,13 +101,97 @@ def test_pinv_on_cpu_never_touches_the_kernel(monkeypatch):
 
 
 def test_work_area_placement():
-    """Shared memory while A, V and the per-index values fit the H100's
-    opt-in budget (R ≤ 120), a global scratch buffer past it."""
+    """The tiers on the H100's opt-in budget: the warp tier up to R = 32;
+    the block tier in shared memory while A, V
+    and the per-index values fit (R ≤ 120); a global scratch buffer past it."""
     assert gram_pinv.work_bytes(10) == 8 * (2 * 100 + 10)
     assert gram_pinv.work_bytes(5) == 8 * (2 * 25 + 6)
-    for rank in (1, 10, 64, 120):
+    for rank in (1, 2, 5, 10, 31, 32):
+        assert gram_pinv.plan_pinv(rank, tiles.SMEM_BUDGET) == gram_pinv.PinvLaunch("warp")
+    for rank in (33, 64, 120):
         plan = gram_pinv.plan_pinv(rank, tiles.SMEM_BUDGET)
-        assert plan == gram_pinv.PinvLaunch(gram_pinv.work_bytes(rank))
+        assert plan == gram_pinv.PinvLaunch("shared", smem_bytes=gram_pinv.work_bytes(rank))
     for rank in (121, 160):
         plan = gram_pinv.plan_pinv(rank, tiles.SMEM_BUDGET)
-        assert plan == gram_pinv.PinvLaunch(0, gram_pinv.work_bytes(rank))
+        assert plan == gram_pinv.PinvLaunch("global", scratch_bytes=gram_pinv.work_bytes(rank))
+
+
+def test_plan_forces_a_tier():
+    """`tier=` reaches the first design at any R; the warp tier stops at 32."""
+    assert gram_pinv.plan_pinv(10, tiles.SMEM_BUDGET, "shared") == gram_pinv.PinvLaunch(
+        "shared", smem_bytes=gram_pinv.work_bytes(10))
+    assert gram_pinv.plan_pinv(10, tiles.SMEM_BUDGET, "global") == gram_pinv.PinvLaunch(
+        "global", scratch_bytes=gram_pinv.work_bytes(10))
+    with pytest.raises(ValueError, match="R ≤ 32"):
+        gram_pinv.plan_pinv(33, tiles.SMEM_BUDGET, "warp")
+    with pytest.raises(ValueError, match="unknown tier"):
+        gram_pinv.plan_pinv(10, tiles.SMEM_BUDGET, "registers")
+
+
+@pytest.mark.parametrize("width", range(2, 34, 2))
+def test_round_robin_meets_every_pair_once(width):
+    """The warp tier's ordering: pairs (2j, 2j+1), then the fixed move
+    between rounds; W-1 rounds meet every pair of columns once and bring
+    every column home."""
+    layout = list(range(width))
+    met = []
+    for _ in range(width - 1):
+        met += [frozenset(layout[2 * j:2 * j + 2]) for j in range(width // 2)]
+        layout = [layout[gram_pinv.round_robin_source(c, width)] for c in range(width)]
+    assert len(met) == len(set(met)) == width * (width - 1) // 2
+    assert layout == list(range(width))
+
+
+def _all_zero(rank: int) -> np.ndarray:
+    return np.zeros((2, rank, rank), np.float32)
+
+
+REPLAY_STACKS = {
+    **{f"rank-{r}": (lambda r=r: gram_stack(r, 4, seed=r, rows=max(50, 3 * r)))
+       for r in (1, 2, 5, 10, 31, 32)},
+    "zero-column": lambda: gram_stack(10, 3, seed=7, edit=_zero_column),
+    "equal-columns": lambda: gram_stack(10, 3, seed=7, edit=_equal_columns),
+    "all-zero": lambda: _all_zero(10),
+}
+
+
+@pytest.mark.parametrize("stack", list(REPLAY_STACKS))
+def test_jacobi_replay_matches_jnp_pinv(stack):
+    """The warp tier's arithmetic, replayed on the host, against
+    `jnp.linalg.pinv` at the file's tolerance: bitwise symmetric, the same
+    directions cut, converged well before the sweep limit; the all-zero
+    matrix gives zeros."""
+    v = REPLAY_STACKS[stack]()
+    rank = v.shape[-1]
+    rp = gram_pinv.jacobi_replay(v)
+    assert rp.out.dtype == np.float32 and rp.out.shape == v.shape
+    assert np.array_equal(rp.out, rp.out.transpose(0, 2, 1))
+    width = rank + rank % 2
+    assert (rp.rounds < gram_pinv.MAX_SWEEPS * (width - 1)).all(), rp.rounds
+    if stack == "all-zero":
+        assert not rp.out.any() and not rp.rotations.any()
+        return
+    want = np.asarray(jnp.linalg.pinv(jnp.asarray(v)))
+    tol = max(1e-6, kept_kappa(v) * 2.0 ** -20)
+    err = np.abs(rp.out - want).max(axis=(1, 2)) / np.abs(want).max(axis=(1, 2))
+    assert float(err.max()) <= tol, (err, tol)
+    v64 = v.astype(np.float64)
+    kept = np.rint(np.trace(v64 @ rp.out.astype(np.float64), axis1=1, axis2=2))
+    kept_jnp = np.rint(np.trace(v64 @ want.astype(np.float64), axis1=1, axis2=2))
+    assert kept.tolist() == kept_jnp.tolist()
+    if stack in ("zero-column", "equal-columns"):
+        assert kept.tolist() == [9.0] * 3
+
+
+def test_jacobi_replay_counts():
+    """Rounds, rotations and checked pairs: a diagonal matrix rotates
+    nothing and stops after one quiet sweep; no pair holding the padded
+    column is checked; a matrix past a warp is refused."""
+    diag = np.diag(np.arange(1, 6, dtype=np.float32))[None]
+    rp = gram_pinv.jacobi_replay(diag)
+    assert rp.rotations.tolist() == [0] and rp.rounds.tolist() == [5]  # W-1 quiet rounds
+    assert rp.checks.tolist() == [5 * 2]  # 2 real pairs per round at R = 5, W = 6
+    np.testing.assert_array_equal(rp.out[0], np.diag(1 / np.arange(1, 6, dtype=np.float64))
+                                  .astype(np.float32))
+    with pytest.raises(ValueError, match="R ≤ 32"):
+        gram_pinv.jacobi_replay(np.eye(33, dtype=np.float32)[None])
