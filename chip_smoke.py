@@ -43,7 +43,10 @@ Phases, each fatal on failure:
      (a zero factor column, two equal columns) and a batched stack of 4096
      at R = 5; the warp tier also bit for bit against its host replay
      (`gram_pinv.jacobi_replay`); R = 160 (the global scratch path); the
-     all-zero matrix (zeros) in both tiers; timed at (a)'s three Grams in
+     all-zero matrix (zeros) in both tiers; a stack of three whose middle
+     member holds a NaN, an off-diagonal +Inf or a diagonal +Inf (all NaN,
+     all NaN, all zeros, as jnp's pinv answers) through every tier, the
+     warp tier bit for bit its replay; timed at (a)'s three Grams in
      turns (plain, `torch.linalg.pinv(hermitian=True)`, warp tier, block
      tier, then back), with the host µs per call, and at B = 8 and 4096,
      R = 5 (the serving path's stacks) in both tiers; then cp_als through
@@ -126,10 +129,22 @@ Phases, each fatal on failure:
      every cell complete), and its Pareto report against
      `roofline.H100_SXM5` (a non-empty front, every peak_fraction in [0,
      1.05]); cells, probes, wall time and winners printed;
+     4r. (after 4w) the paper's benchmark harness on the card, in process:
+     `python -m repro_torch.bench`'s `main` for table1, fig7, fig6 (with
+     the JAX CI's accuracy budget, 0.2, for its format-tuning rows: a pick
+     over the budget fails) and fig8_9 at their full TABLE1 sizes (their
+     output and JSON under results/bench/), then fig7's rows at (a)
+     through its row function on phase 4's chunking and 4h's ALTO and CSF
+     layouts (nothing rebuilt);
+     every suite must exit 0 with finite times, every `auto` row's warm
+     build must make 0 probes, and the phase must launch all three kernels
+     (counted from 0 before it, read after it); each suite's table and
+     seconds printed;
      4s. the serving path, `DecomposeService` over `cp_als_batched` (plain
      tensor ops: it launches neither MTTKRP kernel, which is checked; its
-     batched pseudo-inverses launch the Gram kernel): benchmarks/
-     serve_bench.py's load (three shape/nnz families, 4096 requests from
+     batched pseudo-inverses launch the Gram kernel): the serving
+     benchmark's load (`repro_torch.bench.serve_bench.synthetic_load`:
+     three shape/nnz families, 4096 requests from
      seed 0, rank 5, 3 iterations) from 8 closed-loop client threads,
      max_batch=256, max_wait_ms=20, on a cold store in a fresh temporary
      directory, then a second service on the same store over the first 512
@@ -165,7 +180,7 @@ Phases 4s and 4b hold two runs of one small tensor (batched in other
 company, or sequential) member by member.  Their roundings differ, and ALS
 magnifies a difference by up to κ, the condition number of the Gram
 Hadamard product an update inverts (`solve_kappa`; up to a few hundred on
-this load), so serve_bench's flat 1e-5 on factors fails for a few percent
+this load), so the JAX serve_bench's flat 1e-5 on factors fails for a few percent
 of members at this scale (phase 4s prints how many); the JAX package's own
 batched and sequential runs are not bit-identical either.  Factors and
 λ/max(1, |λ|) are held to max(1e-5, κ·2^-17) and fits to max(1e-6,
@@ -177,6 +192,7 @@ A member's mix-up or a wrong padding moves them by orders of magnitude more.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
 import inspect
 import json
@@ -207,6 +223,11 @@ from repro_torch.batch import (  # noqa: E402
     pad_bucket,
 )
 from repro_torch.analysis import AnalysisResult, check_source, run_analysis  # noqa: E402
+from repro_torch.bench import common as bench_common  # noqa: E402
+from repro_torch.bench import fig7 as bench_fig7  # noqa: E402
+from repro_torch.bench import serve_bench  # noqa: E402
+from repro_torch.bench.__main__ import main as bench_main  # noqa: E402
+from repro_torch.bench.serve_bench import member_gap, solve_kappa, synthetic_load  # noqa: E402
 from repro_torch.batch.cpals import _init_batched  # noqa: E402
 from repro_torch.engine import PlanCache, TuningStore, default_plan_cache  # noqa: E402
 from repro_torch.core.mttkrp import _alto_decode  # noqa: E402
@@ -1050,81 +1071,115 @@ def _autotune_checks(st, plan, formats, kernel_run, role_ms, device, tmp: Path) 
 
 
 # ---------------------------------------------------------------------------
+# Phase 4r: the paper's benchmark harness (repro_torch.bench) on the card.
+# ---------------------------------------------------------------------------
+
+BENCH_SUITES = ("table1", "fig7", "fig6", "fig8_9")
+#: fig6 also tunes the formats under the JAX CI's accuracy budget (0.2).
+BENCH_ARGS = dict(fig6=["--accuracy-budget", "0.2"])
+#: Each suite's time columns (seconds or milliseconds), all finite and positive.
+BENCH_TIMES = dict(table1=(), fig7=("time_all_modes_ms",), fig6=("time_per_iter_s", "total_s"),
+                   fig8_9=("time_ms",))
+
+
+def bench_table(suite: str, rows: list[dict]) -> list[str]:
+    """One line per row, the columns a reader compares with the paper."""
+    if suite == "fig7":
+        return [f"{r['tensor']} {r['engine']}: {r['time_all_modes_ms']:.4f} ms all modes "
+                f"({' / '.join(f'{t:.4f}' for t in r['time_per_mode_ms'])}), bytes bound "
+                f"{r['bytes_bound_ms']:.4f} ms, peak fraction {r['peak_fraction']}"
+                + (f", tune {r['tune_ms']:.1f} ms ({r['tune_probes']} probes) then warm "
+                   f"{r['tune_warm_ms']:.2f} ms ({r['tune_warm_probes']} probes)"
+                   if "tune_ms" in r else "") for r in rows]
+    if suite == "fig6":
+        return [f"{r['tensor']} {r['fmt']} {r['locks']}: fit {r['fit']} diff {r['avg_abs_diff']}, "
+                f"{r['time_per_iter_s'] * 1e3:.3f} ms per iteration" if "locks" in r else
+                f"{r['tensor']} autotune budget={r['budget']}: fit {r['fit']} diff "
+                f"{r['avg_abs_diff']}, {r['engine']} picked {r['picked']}, lossy picks "
+                f"{r['lossy_picks']} (max error {r['winner_max_error']}), errors {r['errors']}, "
+                f"rejected {sorted(r['rejected'])}" for r in rows]
+    if suite == "fig8_9":
+        return [f"{r['tensor']} R={r['rank']} dense fraction {r['dense_fraction']}: "
+                f"{r['time_ms']:.4f} ms, {r['speedup_vs_alto']:.3f}× alto" for r in rows]
+    return [json.dumps(r) for r in rows]
+
+
+def check_bench_rows(suite: str, rows: list[dict]) -> None:
+    times = [r[k] for r in rows for k in BENCH_TIMES[suite] if k in r]
+    if not rows or not all(math.isfinite(t) and t > 0 for t in times):
+        fail(f"phase 4r: {suite} returned {len(rows)} rows, or a time that is not finite")
+    warm = [r["tune_warm_probes"] for r in rows if "tune_warm_probes" in r]
+    if suite == "fig7" and (not warm or any(warm)):
+        fail(f"phase 4r: fig7's warm `auto` builds made {warm} probes, expected 0 each")
+    if suite == "fig6" and not all(r["within_budget"] for r in rows if "within_budget" in r):
+        fail("phase 4r: a fig6 tune picked a fixed-point format over its accuracy budget")
+
+
+def bench_checks(st, plan, formats, device) -> None:
+    """Phase 4r.  Its launches, autotune probes included, go on a line of
+    their own and not on the `kernels` line: the probes a tune makes depend
+    on its timings."""
+    out = Path(bench_common.RESULTS_DIR)
+    out.mkdir(parents=True, exist_ok=True)
+    mttkrp_kernel.launches = mttkrp_fixed_kernel.launches = gram_pinv.launches = 0
+    t_phase = time.perf_counter()
+    for suite in BENCH_SUITES:
+        t0 = time.perf_counter()
+        with open(out / f"{suite}.log", "w") as f, contextlib.redirect_stdout(f):
+            rc = bench_main(["--only", suite, *BENCH_ARGS.get(suite, [])])
+        seconds = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"phase 4r: python -m repro_torch.bench --only {suite} exited {rc} "
+                 f"({out / f'{suite}.log'})")
+        rows = json.loads((out / f"torch_{suite}.json").read_text())
+        check_bench_rows(suite, rows)
+        log(f"[4r] {suite}: {len(rows)} rows in {seconds:.1f}s")
+        for line in bench_table(suite, rows):
+            log(f"[4r]   {line}")
+    # fig7 at (a): phase 4's chunking and 4h's layouts, nothing rebuilt.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp, \
+            open(out / "fig7_a.log", "w") as f, contextlib.redirect_stdout(f):
+        rows = bench_fig7.engine_rows(
+            "nell2-a", st, chunking=dict(chunk_shape=plan.chunk_shape, capacity=plan.capacity),
+            plans=default_plan_cache, formats=formats, tstore=TuningStore(Path(tmp) / "a.json"),
+            device=device, iters=3)
+    bench_common.save("fig7_a", rows)
+    check_bench_rows("fig7", rows)
+    log(f"[4r] fig7 at (a): {len(rows)} rows in {time.perf_counter() - t0:.1f}s")
+    for line in bench_table("fig7", rows):
+        log(f"[4r]   {line}")
+    launches = dict(float=mttkrp_kernel.launches, fixed=mttkrp_fixed_kernel.launches,
+                    pinv=gram_pinv.launches)
+    log(f"[4r] phase took {time.perf_counter() - t_phase:.1f}s; kernel launches {launches} "
+        f"(autotune probes included; not on the kernels line)")
+    if not all(launches.values()):
+        fail(f"phase 4r: the harness did not launch every kernel: {launches}")
+
+
+# ---------------------------------------------------------------------------
 # Phases 4s and 4b: the serving path (DecomposeService over cp_als_batched).
 # ---------------------------------------------------------------------------
 
-SERVE_RANK, SERVE_ITERS = 5, 3     # benchmarks/serve_bench.py's RANK and N_ITERS
+SERVE_RANK, SERVE_ITERS = serve_bench.RANK, serve_bench.N_ITERS
 SERVE_N, SERVE_CLIENTS, SERVE_MAX_BATCH, SERVE_MAX_WAIT_MS = 4096, 8, 256, 20.0
 SERVE_WARM_N = 512                 # the warm second service's share of the load
 SEQ_SAMPLE, BATCH_SAMPLE = 32, 64  # members held against the sequential `ref` run
 BATCH_N = 65536                    # phase 4b: 2^16 tensors in one cp_als_batched call
 # Parity of two batched or sequential runs of the same tensor (see the module
-# docstring): factors and λ/max(1, |λ|) within max(1e-5, κ·2^-17), fits within
-# max(1e-6, κ·2^-20) per iteration, κ from `solve_kappa`.
-BATCH_FACTOR_ATOL, BATCH_FACTOR_KAPPA = 1e-5, 2.0 ** -17
-BATCH_FIT_ATOL, BATCH_FIT_KAPPA = 1e-6, 2.0 ** -20
-
-
-def synthetic_load(n: int, seed: int = 0) -> list[rt.SparseTensor]:
-    """`n` small tensors drawn from three shape/nnz families, shuffled — the
-    arrival order interleaves buckets the way concurrent users would (a
-    copy of benchmarks/serve_bench.py's load)."""
-    rng = np.random.default_rng(seed)
-    families = [
-        ((12, 10, 8), (40, 70)),     # 3-D, band 5/6
-        ((16, 16, 16), (90, 120)),   # pow-2 dims, band 6
-        ((24, 24), (50, 60)),        # 2-D, band 5
-    ]
-    tensors = []
-    for i in range(n):
-        shape, (lo, hi) = families[i % len(families)]
-        nnz = int(rng.integers(lo, hi))
-        coords = np.stack([rng.integers(0, d, size=nnz) for d in shape],
-                          axis=1).astype(np.int32)
-        values = rng.uniform(-1, 1, size=nnz).astype(np.float32)
-        tensors.append(rt.SparseTensor(coords, values, shape))
-    order = rng.permutation(n)
-    return [tensors[i] for i in order]
-
-
-def solve_kappa(factors) -> float:
-    """The largest condition number, over the modes, of the matrix each ALS
-    update inverts: the Hadamard product of the other modes' Grams (float64,
-    from the given factors)."""
-    fs = [np.asarray(f, dtype=np.float64) for f in factors]
-    worst = 1.0
-    for mode in range(len(fs)):
-        v = np.ones((fs[0].shape[1],) * 2)
-        for k, f in enumerate(fs):
-            if k != mode:
-                v = v * (f.T @ f)
-        worst = max(worst, float(np.linalg.cond(v)))
-    return worst
+# docstring): `serve_bench.member_gap`, the serving benchmark's own rule.
 
 
 def hold_gap(tag: str, got, want, against: str) -> None:
     """Hold two lists of CPResults of the same tensors together, each member
-    at its own tolerances (BATCH_FACTOR_*, BATCH_FIT_*; κ from `want`)."""
-    worst_gap = worst_fit = worst_ratio = worst_kappa = 0.0
-    over_floor = 0
-    for a, b in zip(got, want, strict=True):
-        fa = [f.cpu().numpy() for f in a.factors]
-        fb = [f.cpu().numpy() for f in b.factors]
-        la, lb = a.lam.cpu().numpy(), b.lam.cpu().numpy()
-        kappa = solve_kappa(fb)
-        gap = max(max(float(np.abs(x - y).max()) for x, y in zip(fa, fb, strict=True)),
-                  float((np.abs(la - lb) / np.maximum(np.abs(lb), 1.0)).max()))
-        fit = max(abs(x - y) for x, y in zip(a.fit_history, b.fit_history, strict=True))
-        over_floor += gap > BATCH_FACTOR_ATOL
-        worst_ratio = max(worst_ratio,
-                          gap / max(BATCH_FACTOR_ATOL, BATCH_FACTOR_KAPPA * kappa),
-                          fit / max(BATCH_FIT_ATOL, BATCH_FIT_KAPPA * kappa))
-        worst_gap, worst_fit = max(worst_gap, gap), max(worst_fit, fit)
-        worst_kappa = max(worst_kappa, kappa)
+    at its own tolerances (`serve_bench.member_gap`; κ from `want`)."""
+    gaps = [member_gap(a, b) for a, b in zip(got, want, strict=True)]
+    worst = {k: max(g[k] for g in gaps) for k in ("gap", "fit", "kappa", "ratio")}
+    over_floor = sum(g["gap"] > serve_bench.FACTOR_ATOL for g in gaps)
     log(f"[{tag}]   {len(got)} results against {against}: max |Δ factor or Δλ/max(1,|λ|)|="
-        f"{worst_gap:.3e} (above {BATCH_FACTOR_ATOL} in {over_floor}), max |Δ fit|="
-        f"{worst_fit:.3e}, max κ={worst_kappa:.1f}; max gap/tolerance={worst_ratio:.3f}")
-    if worst_ratio > 1.0:
+        f"{worst['gap']:.3e} (above {serve_bench.FACTOR_ATOL} in {over_floor}), max |Δ fit|="
+        f"{worst['fit']:.3e}, max κ={worst['kappa']:.1f}; max gap/tolerance={worst['ratio']:.3f}")
+    if worst["ratio"] > 1.0:
         fail(f"phase {tag}: the results left {against}")
 
 
@@ -1546,6 +1601,44 @@ def hold_pinv(label: str, v: torch.Tensor, tier: str | None = None) -> float:
     return worst
 
 
+#: Member 1 of a (3, R, R) stack of Grams, entries set symmetrically, and
+#: what `jnp.linalg.pinv` answers for it: NaN for a NaN anywhere or a ±Inf
+#: off the diagonal, zeros for ±Inf only on the diagonal.
+NONFINITE_MEMBERS = {
+    "a NaN off the diagonal": ([(3, 4, math.nan)], "NaN"),
+    "+Inf off the diagonal": ([(3, 4, math.inf)], "NaN"),
+    "+Inf on the diagonal": ([(2, 2, math.inf)], "zeros"),
+}
+
+
+def hold_nonfinite(device) -> None:
+    """Each of NONFINITE_MEMBERS through every tier against the plain
+    version: the same NaN entries, the bad member all NaN or all zeros, the
+    others within hold_pinv's tolerance; the warp tier bit for bit its host
+    replay, NaN bits included."""
+    for label, (entries, expect) in NONFINITE_MEMBERS.items():
+        v = gram_stack(RANK, 3, 9)
+        for i, j, x in entries:
+            v[1, i, j] = v[1, j, i] = x
+        vt = torch.from_numpy(v).to(device)
+        want = kref.gram_pinv_ref(vt)
+        for tier in ("warp", "shared", "global"):
+            got = gram_pinv.gram_pinv(vt, launch=pinv_plan(RANK, tier))
+            bad = got[1]
+            ok = (torch.equal(got.isnan(), want.isnan())
+                  and bool(bad.isnan().all() if expect == "NaN" else (bad == 0).all()))
+            g, w = got[[0, 2]].double().cpu().numpy(), want[[0, 2]].double().cpu().numpy()
+            rel = np.abs(g - w).max(axis=(-2, -1)) / np.abs(w).max(axis=(-2, -1))
+            ok &= bool((rel <= np.maximum(PINV_ATOL, kept_kappa(v[[0, 2]]) * PINV_KAPPA)).all())
+            replayed = tier != "warp" or np.array_equal(
+                gram_pinv.jacobi_replay(v).out.view(np.int32), got.cpu().numpy().view(np.int32))
+            log(f"[4p]   {label} in member 1 of (3, {RANK}, {RANK}), {tier} tier: member 1 "
+                f"{expect} {ok}, the others' max relative gap {rel.max():.3e}"
+                f"{'; bit-equal to its host replay' if tier == 'warp' else ''}: {replayed}")
+            if not (ok and replayed):
+                fail(f"phase 4p: the {tier} tier left the plain version on {label}")
+
+
 def _zero_column(f):
     f[:, 3] = 0.0
 
@@ -1586,6 +1679,7 @@ def pinv_checks(st, engine, kernel_run, device) -> dict:
         if not bool((gram_pinv.gram_pinv(zero, launch=pinv_plan(RANK, tier)) == 0).all()):
             fail(f"phase 4p: the {tier} tier's pseudo-inverse of a zero matrix is not zero")
     log("[4p]   the all-zero matrix: both tiers give zeros")
+    hold_nonfinite(device)
     # (a)'s three V, one launch each as cp_als makes them, in turns: plain,
     # library, this design, the first design (block tier), then back.
     rtol = kref.gram_pinv_rtol(RANK)
@@ -2123,6 +2217,9 @@ def main() -> int:
     log(f"[4w] phase took {time.perf_counter() - t0:.1f}s; probes launched the float kernel "
         f"{mttkrp_kernel.launches} times, the fixed one {mttkrp_fixed_kernel.launches} times")
 
+    # 4r. The paper's benchmark harness on the card.
+    bench_checks(st_a, plan_a, formats_a, device)
+
     # 4s and 4b. The serving path: it launches neither MTTKRP kernel; its
     # batched pseudo-inverses go through the Gram kernel.
     mttkrp_kernel.launches = 0
@@ -2152,7 +2249,9 @@ def main() -> int:
     # iteration at case (a)'s shapes, summed over the modes; launches: the
     # main paths' runs, the float kernel's through `kernel` (phases 4 and 4y), `distributed`,
     # `hetero` and the tuned `auto` engine, the fixed kernel's over both of
-    # its runs, the Gram kernel's through `kernel` (phases 4 and 4y)).
+    # its runs, the Gram kernel's through `kernel` (phases 4 and 4y).  The
+    # benchmark harness's launches (4r) stay on their own line: its
+    # autotune probes vary from run to run, and these counts do not).
     def entry(kind, rows, n_launches, err):
         return {**KERNELS[kind], "route": "cuda", "launches": n_launches, "max_abs_err": err,
                 "ms": sum(r["ms"] for r in rows),
@@ -2165,8 +2264,8 @@ def main() -> int:
                                         launches + sync_launches + dist_launches
                                         + hetero_launches + auto_launches,
                                         worst),
-                                  entry("fixed", fixed_modes, fixed_launches,
-                                        float(worst_fixed)),
+                                  entry("fixed", fixed_modes,
+                                        fixed_launches, float(worst_fixed)),
                                   {**KERNELS["pinv"], "route": "cuda",
                                    "launches": pinv_launches + sync_pinv_launches,
                                    **pinv_row}]}), flush=True)

@@ -13,6 +13,10 @@
 // its singular values are the |λ| and this is the function jnp's SVD-based
 // pinv computes, with jnp's cutoff.  Only the upper triangle is read: the
 // float32 Gram products can differ from their transposes in the last bit.
+// A matrix holding a NaN, or a ±Inf off the diagonal, comes out all NaN; one
+// with ±Inf only on the diagonal all zeros, as jnp's pinv answers both; such
+// a matrix is flagged as it is loaded (a block vote or a warp ballot) and
+// runs no rotation.
 //
 // Two designs, one contract.
 //
@@ -106,6 +110,20 @@ __device__ inline void pair_of(int k, int i, int m, int& p, int& q) {
     }
 }
 
+// A non-finite entry decides the result without any rotation, as
+// `jnp.linalg.pinv` does: a NaN anywhere, or a ±Inf off the diagonal, makes
+// every entry NaN; ±Inf only on the diagonal makes every entry zero (the
+// cutoff, rtol·Inf, keeps no direction).
+constexpr int kNonFiniteNaN = 2;
+constexpr int kNonFiniteZeros = 1;
+
+// The quiet NaN numpy's float32 NaN has, so that the host replay matches bit for bit.
+__device__ __forceinline__ float quiet_nan() { return __uint_as_float(0x7fc00000u); }
+
+__device__ __forceinline__ int nonfinite_kind(double x, bool diagonal) {
+    return isfinite(x) ? 0 : diagonal && !isnan(x) ? kNonFiniteZeros : kNonFiniteNaN;
+}
+
 __global__ void __launch_bounds__(kMaxThreads)
 gram_pinv_kernel(const float* __restrict__ v, float* __restrict__ out, int R, double rtol,
                  double* __restrict__ scratch) {
@@ -122,12 +140,22 @@ gram_pinv_kernel(const float* __restrict__ v, float* __restrict__ out, int R, do
     double* sn = aux + half;
     const float* vb = v + b * rr;
 
+    int bad = 0;  // kNonFiniteNaN, kNonFiniteZeros: what this thread's entries ask for
     for (long long idx = threadIdx.x; idx < rr; idx += blockDim.x) {
         const int i = static_cast<int>(idx / R), j = static_cast<int>(idx % R);
-        A[idx] = static_cast<double>(vb[i <= j ? idx : static_cast<long long>(j) * R + i]);
+        const double x = static_cast<double>(vb[i <= j ? idx : static_cast<long long>(j) * R + i]);
+        A[idx] = x;
         V[idx] = i == j ? 1.0 : 0.0;
+        bad |= nonfinite_kind(x, i == j);
     }
-    __syncthreads();
+    // Both votes are block barriers: A and V are complete after them.
+    const int any_nan = __syncthreads_or(bad & kNonFiniteNaN);
+    const int any_inf = __syncthreads_or(bad & kNonFiniteZeros);
+    if (any_nan || any_inf) {
+        const float fill = any_nan ? quiet_nan() : 0.0f;
+        for (long long idx = threadIdx.x; idx < rr; idx += blockDim.x) out[b * rr + idx] = fill;
+        return;  // the whole block: no barrier follows
+    }
 
     for (int sweep = 0; sweep < kMaxSweeps; ++sweep) {
         int rotated = 0;
@@ -392,6 +420,7 @@ gram_pinv_warp_kernel(const float* __restrict__ v, float* __restrict__ out, long
     const float* vb = v + b * rr;
 
     double u[W], w[W];
+    int bad = 0;  // kNonFiniteNaN, kNonFiniteZeros: what this lane's row asks for
 #pragma unroll
     for (int c = 0; c < W; ++c) {
         u[c] = row < R && c < R
@@ -399,6 +428,15 @@ gram_pinv_warp_kernel(const float* __restrict__ v, float* __restrict__ out, long
                                                      : static_cast<long long>(c) * R + row])
                    : 0.0;
         w[c] = row == c ? 1.0 : 0.0;
+        bad |= nonfinite_kind(u[c], row == c);
+    }
+    const unsigned any_nan = __ballot_sync(kFullMask, bad & kNonFiniteNaN);
+    if (any_nan | __ballot_sync(kFullMask, bad & kNonFiniteZeros)) {
+        const float fill = any_nan ? quiet_nan() : 0.0f;
+        if (lane < R) {
+            for (int j = 0; j < R; ++j) out[b * rr + static_cast<long long>(lane) * R + j] = fill;
+        }
+        return;  // the whole warp: no shuffle follows
     }
 
     double row_sq = 0.0;

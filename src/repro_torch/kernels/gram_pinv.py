@@ -181,7 +181,10 @@ def jacobi_replay(v: np.ndarray) -> Replay:
     whose squared norm is at most eps²·‖A‖_F² is numerically zero and does
     not rotate), stopping rule, cutoff and
     result formation, each operation rounded once as the kernel's explicitly
-    rounded intrinsics are.  `v` is (..., R, R) float32 (upper triangle
+    rounded intrinsics are.  A matrix whose upper triangle holds a NaN or
+    an off-diagonal ±Inf comes out all NaN, one with ±Inf only on the
+    diagonal all zeros, both after 0 rounds (`ref._nonfinite_members`, as
+    `jnp.linalg.pinv` answers).  `v` is (..., R, R) float32 (upper triangle
     read, R ≤ 32)."""
     v = np.asarray(v, np.float32)
     r = v.shape[-1]
@@ -190,6 +193,8 @@ def jacobi_replay(v: np.ndarray) -> Replay:
     width = r + (r & 1)
     lanes = warp_lanes(width)
     x = np.triu(v.reshape(-1, r, r).astype(np.float64))
+    nan, zero = (m.numpy() for m in ref._nonfinite_members(torch.from_numpy(x)))
+    x[nan | zero] = 0.0  # such a matrix skips the rounds
     x = x + np.triu(x, 1).transpose(0, 2, 1)
     n = x.shape[0]
     u = np.zeros((n, lanes, width))
@@ -204,7 +209,7 @@ def jacobi_replay(v: np.ndarray) -> Replay:
     rounds = np.zeros(n, np.int64)
     rotations = np.zeros(n, np.int64)
     checks = np.zeros(n, np.int64)
-    active = np.ones(n, bool)
+    active = ~(nan | zero)
     eps = np.finfo(np.float64).eps
     row_sq = np.zeros((n, lanes))
     for c in range(width):
@@ -241,4 +246,5 @@ def jacobi_replay(v: np.ndarray) -> Replay:
     acc = np.zeros((n, r, r))
     for k in range(width):
         acc = acc + d[:, None, None, k] * (w[:, :r, None, k] * w[:, None, :r, k])
+    acc[nan] = np.nan
     return Replay(acc.astype(np.float32).reshape(v.shape), rounds, rotations, checks)

@@ -68,8 +68,27 @@ def gram_pinv_rtol(rank: int) -> float:
     return 10 * rank * torch.finfo(torch.float32).eps
 
 
+def _nonfinite_members(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Which (R, R) matrices of `v` `jnp.linalg.pinv` answers without an SVD
+    of finite numbers: (all NaN, all zeros) boolean masks over the leading
+    dimensions.  A NaN anywhere, or a ±Inf off the diagonal, makes the whole
+    pseudo-inverse NaN; ±Inf only on the diagonal makes it zeros (the
+    cutoff, rtol·Inf, keeps no direction)."""
+    rank = v.shape[-1]
+    off = ~torch.eye(rank, dtype=torch.bool, device=v.device)
+    finite = torch.isfinite(v)
+    nan = (torch.isnan(v) | (~finite & off)).flatten(-2).any(-1)
+    return nan, (~finite).flatten(-2).any(-1) & ~nan
+
+
 def gram_pinv_ref(v: torch.Tensor) -> torch.Tensor:
     """Pseudo-inverse of each (R, R) matrix of `v` by torch's SVD, with
-    `jnp.linalg.pinv`'s cutoff."""
+    `jnp.linalg.pinv`'s cutoff; a member holding a non-finite entry gets
+    jnp's answer (`_nonfinite_members`) and never reaches the SVD, which
+    would raise for the whole stack."""
+    rtol = gram_pinv_rtol(v.shape[-1])
+    nan, zero = _nonfinite_members(v)
+    bad = (nan | zero)[..., None, None]
     # repro-lint: disable=host-sync -- plain version: CPU and tests only; the card's main path runs gram_pinv.cu
-    return torch.linalg.pinv(v, rtol=gram_pinv_rtol(v.shape[-1]))
+    out = torch.linalg.pinv(torch.where(bad, 0.0, v), rtol=rtol)
+    return out.masked_fill(nan[..., None, None], float("nan"))

@@ -1,6 +1,6 @@
 """The port stands alone: importing `repro_torch` loads neither JAX nor the
 JAX package, builds no kernel, and no file of the port (or chip_smoke.py)
-imports either."""
+imports either (nor the JAX harness, `benchmarks`)."""
 import ast
 import json
 import os
@@ -12,7 +12,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def test_import_loads_no_jax_and_no_reference():

@@ -17,7 +17,9 @@ preset, every mode.  The Gram pseudo-inverse kernel (float64 Jacobi) is
 held to its plain version (torch's float32 SVD on the card) at
 max(1e-5, κ·2^-17) of each matrix's largest entry, κ its condition number
 over the kept directions: the flat value where V is well conditioned, about
-64 float32 roundings magnified by κ where it is not.
+64 float32 roundings magnified by κ where it is not.  A member holding a
+NaN or an off-diagonal ±Inf must come out all NaN, one with ±Inf only on
+the diagonal all zeros, as the plain version (and `jnp.linalg.pinv`) answer.
 """
 import dataclasses
 
@@ -516,6 +518,43 @@ def test_gram_pinv_warp_and_block_tiers_agree(cuda, stack):
     block = gram_pinv.gram_pinv(v, launch=_pinv_plan(cuda, rank, "shared"))
     assert gram_pinv.launches == before + 2
     _assert_pinv_close(warp, block, v)
+
+
+#: Symmetric non-finite placements in member 1 of a (3, 10, 10) stack, and
+#: what `jnp.linalg.pinv` answers for that member (tests/test_torch_pinv.py
+#: holds the plain version and the host replay to it on the CPU).
+NONFINITE = {
+    "nan-off-diagonal": ([(3, 4, np.nan)], "nan"),
+    "nan-diagonal": ([(2, 2, np.nan)], "nan"),
+    "inf-off-diagonal": ([(3, 4, np.inf)], "nan"),
+    "neg-inf-off-diagonal": ([(3, 4, -np.inf)], "nan"),
+    "inf-diagonal": ([(2, 2, np.inf)], "zeros"),
+    "inf-two-diagonal": ([(2, 2, np.inf), (5, 5, np.inf)], "zeros"),
+    "neg-inf-diagonal": ([(2, 2, -np.inf)], "zeros"),
+    "inf-diagonal-and-off": ([(2, 2, np.inf), (2, 5, np.inf)], "nan"),
+}
+
+
+@pytest.mark.parametrize("tier", ["warp", "shared", "global"])
+@pytest.mark.parametrize("placement", list(NONFINITE))
+def test_gram_pinv_nonfinite_member(cuda, placement, tier):
+    """One bad member: all NaN or all zeros as the plain version (and jnp)
+    answer, the others within the tolerance of the plain version; the warp
+    tier bit for bit its host replay, NaN bits included."""
+    v = _gram_stack(10, 3, 9).numpy()
+    for i, j, x in NONFINITE[placement][0]:
+        v[1, i, j] = v[1, j, i] = x
+    vt = torch.from_numpy(v).to(cuda)
+    before = gram_pinv.launches
+    got = gram_pinv.gram_pinv(vt, launch=_pinv_plan(cuda, 10, tier))
+    assert gram_pinv.launches == before + 1
+    want = pref.gram_pinv_ref(vt)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert bool(got[1].isnan().all()) if NONFINITE[placement][1] == "nan" else not got[1].any()
+    _assert_pinv_close(got[[0, 2]], want[[0, 2]], vt[[0, 2]])
+    if tier == "warp":
+        replay = gram_pinv.jacobi_replay(v)
+        assert np.array_equal(replay.out.view(np.int32), got.cpu().numpy().view(np.int32))
 
 
 def test_gram_pinv_reads_one_triangle(cuda):

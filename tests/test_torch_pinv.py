@@ -2,7 +2,10 @@
 version (`kernels/ref.py::gram_pinv_ref`, torch's SVD with jnp's cutoff)
 and the warp tier's host replay (`kernels/gram_pinv.py::jacobi_replay`,
 the CUDA kernel's float64 arithmetic in its order) against
-`jnp.linalg.pinv` on the CPU, the tiers `plan_pinv` picks, and the dispatch
+`jnp.linalg.pinv` on the CPU, non-finite entries included (a NaN, or a
+±Inf off the diagonal, makes a member NaN; ±Inf only on the diagonal
+makes it zeros; cp_als and cp_als_batched carry that through as the JAX
+package does), the tiers `plan_pinv` picks, and the dispatch
 of `core/cpals.py::_pinv`, which sends CPU tensors to the plain version and
 never to the CUDA kernel (`kernels/gram_pinv.py`; its tests on the card are
 in tests/test_torch_kernel_gpu.py).
@@ -19,6 +22,9 @@ import numpy as np
 import pytest
 import torch
 
+import repro
+import repro_torch as rt
+from repro.batch import cp_als_batched as ref_cp_als_batched
 from repro_torch.core.cpals import _pinv
 from repro_torch.kernels import _build, gram_pinv, tiles
 from repro_torch.kernels import ref as pref
@@ -195,3 +201,118 @@ def test_jacobi_replay_counts():
                                   .astype(np.float32))
     with pytest.raises(ValueError, match="R ≤ 32"):
         gram_pinv.jacobi_replay(np.eye(33, dtype=np.float32)[None])
+
+
+#: Symmetric placements of non-finite entries in a 10×10 V: each entry set
+#: at (i, j) and (j, i).  jnp's pinv answers NaN for a NaN anywhere or a ±Inf
+#: off the diagonal, zeros for ±Inf only on the diagonal.
+NONFINITE = {
+    "nan-off-diagonal": ([(3, 4, np.nan)], "nan"),
+    "nan-diagonal": ([(2, 2, np.nan)], "nan"),
+    "inf-off-diagonal": ([(3, 4, np.inf)], "nan"),
+    "neg-inf-off-diagonal": ([(3, 4, -np.inf)], "nan"),
+    "inf-diagonal": ([(2, 2, np.inf)], "zeros"),
+    "inf-two-diagonal": ([(2, 2, np.inf), (5, 5, np.inf)], "zeros"),
+    "neg-inf-diagonal": ([(2, 2, -np.inf)], "zeros"),
+    "inf-diagonal-and-off": ([(2, 2, np.inf), (2, 5, np.inf)], "nan"),
+}
+
+
+def nonfinite_stack(placement: str) -> np.ndarray:
+    """(3, 10, 10): the SPD V = a·aᵀ (seed 0) three times over, the middle
+    member with `placement`'s entries set symmetrically."""
+    a = np.random.default_rng(0).standard_normal((10, 10)).astype(np.float32)
+    v = np.stack([a @ a.T, a @ a.T + np.eye(10, dtype=np.float32), 2 * (a @ a.T)])
+    for i, j, x in NONFINITE[placement][0]:
+        v[1, i, j] = v[1, j, i] = x
+    return v
+
+
+@pytest.mark.parametrize("single", [False, True], ids=["stack", "single"])
+@pytest.mark.parametrize("how", ["plain", "replay"])
+@pytest.mark.parametrize("placement", list(NONFINITE))
+def test_nonfinite_members_follow_jnp_pinv(placement, how, single):
+    """Member by member jnp's answer: the bad member all NaN or all zeros,
+    the others finite and within the file's tolerance; one (R, R) matrix
+    alone gives the bad member's answer.  The replay runs no round on it."""
+    v = nonfinite_stack(placement)
+    if single:
+        v = v[1]
+    with np.errstate(invalid="ignore"):
+        want = np.asarray(jnp.linalg.pinv(jnp.asarray(v)))
+    if how == "plain":
+        got = pref.gram_pinv_ref(torch.from_numpy(v)).numpy()
+    else:
+        rp = gram_pinv.jacobi_replay(v)
+        got = rp.out
+        assert int(np.asarray(rp.rounds).reshape(-1)[0 if single else 1]) == 0
+    assert got.shape == v.shape and got.dtype == np.float32
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    bad = got if single else got[1]
+    expect = NONFINITE[placement][1]
+    assert np.isnan(bad).all() if expect == "nan" else not bad.any()
+    if single:
+        return
+    good = [0, 2]
+    tol = max(1e-6, kept_kappa(v[good]) * 2.0 ** -20)
+    err = (np.abs(got[good] - want[good]).max(axis=(1, 2))
+           / np.abs(want[good]).max(axis=(1, 2)))
+    assert float(err.max()) <= tol, (err, tol)
+
+
+def test_nonfinite_replay_is_the_plain_mask():
+    """The replay reads the upper triangle: a NaN below the diagonal only
+    is not seen, as in the kernel; the plain version sees it, as jnp does."""
+    v = nonfinite_stack("inf-diagonal")[0].copy()
+    v[6, 1] = np.nan
+    assert not np.isnan(gram_pinv.jacobi_replay(v).out).any()
+    assert np.isnan(pref.gram_pinv_ref(torch.from_numpy(v)).numpy()).all()
+
+
+def _with_nan(mod, seed: int, nan: bool):
+    """A tiny seeded tensor of `mod` (the JAX package or the port), one of
+    its values NaN when `nan`."""
+    st = mod.random_tensor((12, 10, 8), 60, seed=seed)
+    values = st.values.copy()
+    if nan:
+        values[5] = np.nan
+    return mod.SparseTensor(st.coords, values, st.shape)
+
+
+def _nan_pattern_equal(got, want):
+    assert np.array_equal(np.isnan(np.asarray(got.fit_history)),
+                          np.isnan(np.asarray(want.fit_history)))
+    for f, g in zip(got.factors, want.factors, strict=True):
+        np.testing.assert_array_equal(np.isnan(f.numpy()), np.isnan(np.asarray(g)))
+
+
+@pytest.mark.parametrize("engine", ["ref", "chunked"])
+def test_cp_als_with_a_nan_value_follows_the_reference(engine):
+    """One NaN value spreads to every factor and fit in the reference; the
+    port gives the same pattern and raises nothing."""
+    want = repro.core.cp_als(_with_nan(repro.core, 0, True), 4, n_iters=3, engine=engine, seed=0)
+    got = rt.cp_als(_with_nan(rt, 0, True), 4, n_iters=3, engine=engine, seed=0, device="cpu")
+    assert np.isnan(want.fit_history).all()
+    _nan_pattern_equal(got, want)
+
+
+def test_cp_als_batched_with_a_nan_member_follows_the_reference():
+    """The NaN member of a bucket comes out as the reference's (all NaN);
+    the other members are bit for bit the same as in the batch without it,
+    and within the batch tests' κ rule of the reference's."""
+    want = ref_cp_als_batched([_with_nan(repro.core, s, s == 1) for s in range(3)], 4, n_iters=3)
+    got = rt.cp_als_batched([_with_nan(rt, s, s == 1) for s in range(3)], 4, n_iters=3,
+                            device="cpu")
+    clean = rt.cp_als_batched([_with_nan(rt, s, False) for s in range(3)], 4, n_iters=3,
+                              device="cpu")
+    for g, w in zip(got, want, strict=True):
+        _nan_pattern_equal(g, w)
+    assert np.isnan(got[1].fit_history).all()
+    for i in (0, 2):
+        assert got[i].fit_history == clean[i].fit_history
+        for f, c, w in zip(got[i].factors, clean[i].factors, want[i].factors, strict=True):
+            assert torch.equal(f, c)
+            fs = [np.asarray(x, np.float64) for x in want[i].factors]
+            kappa = max(np.linalg.cond(np.prod([x.T @ x for k, x in enumerate(fs) if k != m],
+                                               axis=0)) for m in range(3))
+            assert float(np.abs(f.numpy() - np.asarray(w)).max()) <= max(1e-5, kappa * 2.0 ** -17)
