@@ -30,9 +30,10 @@ Phases, each fatal on failure:
   4. the float path: cp_als on tensor (a) through the `kernel` engine built
      as the example builds it; the float kernel must launch n_iters × 3
      times (the fixed one never), and the fit and factors must follow the
-     plain `chunked` engine on the card; then, on the small TABLE1 nell2,
-     the kernel engine on the card must follow the CPU path that the CPU
-     tests hold to the JAX reference; every mode update's pseudo-inverse
+     plain `chunked` engine on the card (the small TABLE1 nell2 on the
+     card against the CPU path, which the CPU tests hold to the JAX
+     reference, is phase 4e's `--engine kernel` check); every mode
+     update's pseudo-inverse
      goes through the Gram pseudo-inverse kernel's warp tier
      (`csrc/gram_pinv.cu`, n_iters × 3 launches);
      4p. (right after phase 4) the Gram pseudo-inverse kernel against its
@@ -85,6 +86,20 @@ Phases, each fatal on failure:
      phase 4's `kernel` run), the NCCL version, the collectives' log through
      `roofline.collective_bytes` (0 wire bytes at group size 1) and the
      peak memory;
+     4e. (right after 4d, which destroys its group) the example CLIs of
+     `repro_torch.examples`, in process with their output captured: the
+     quickstart's four rows (ref, chunked, fixed int7, kernel) on the card
+     against the same rows on the CPU (float fit and diff within 1e-6,
+     fixed within 1e-5 + 1e-3·|cpu|) and their launches (9 float, 9 fixed,
+     36 Gram); `decompose_tensor --tensor nell2 --iters 5` through `kernel`
+     (15 float-kernel and 15 Gram launches, 5 finite fits, fit and diff
+     within 1e-6 of `--device cpu`: the script's one check of the kernel
+     engine on the card against the CPU path on TABLE1 nell2), `fixed` through `main` (15 fixed-kernel
+     launches), `auto` twice on one fresh store (probes on the first run,
+     `probes=0` on the second), `distributed` on a one-rank NCCL group (15
+     float-kernel launches, fits within 1e-5 of `kernel`'s) and
+     `--list-backends` (`kernel`, no `pallas`); its launches and seconds
+     on a `[4e]` line of their own, not on the `kernels` line;
      4g. the paper's Fig. 6 claim (int15-12 tracks float, int7 stays
      bounded) on tests/test_cpals.py's planted low-rank tensor, and a
      planted rank-3 cube of side 180 (every cell present) where the fit
@@ -195,6 +210,7 @@ import bisect
 import contextlib
 import dataclasses
 import inspect
+import io
 import json
 import math
 import re
@@ -230,6 +246,7 @@ from repro_torch.bench.__main__ import main as bench_main  # noqa: E402
 from repro_torch.bench.serve_bench import member_gap, solve_kappa, synthetic_load  # noqa: E402
 from repro_torch.batch.cpals import _init_batched  # noqa: E402
 from repro_torch.engine import PlanCache, TuningStore, default_plan_cache  # noqa: E402
+from repro_torch.examples import decompose_tensor, quickstart  # noqa: E402
 from repro_torch.core.mttkrp import _alto_decode  # noqa: E402
 from repro_torch.engine.calibrate import MIN_OBSERVATIONS  # noqa: E402
 from repro_torch.obs import capture  # noqa: E402
@@ -1321,6 +1338,127 @@ def distributed_checks(st, plan, kernel_run, device) -> int:
     return launches
 
 
+def run_example(fn, *args):
+    """Call an example's `run` or `main` with its output captured; returns
+    (its return value, its lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = fn(*args)
+    return ret, buf.getvalue().splitlines()
+
+
+def examples_checks(device) -> dict:
+    """Phase 4e: the example CLIs (`repro_torch.examples`) in process, on
+    TABLE1 nell2 and the quickstart's tensor.  Returns the phase's kernel
+    launches, autotune probes included (not on the `kernels` line)."""
+    cpu = torch.device("cpu")
+    total = Counter()
+
+    def counted(fn, *args):
+        mttkrp_kernel.launches = mttkrp_fixed_kernel.launches = gram_pinv.launches = 0
+        ret, lines = run_example(fn, *args)
+        n = dict(float=mttkrp_kernel.launches, fixed=mttkrp_fixed_kernel.launches,
+                 pinv=gram_pinv.launches)
+        total.update(n)
+        return ret, lines, n
+
+    # 1. The quickstart's four rows on the card against the CPU.
+    card, lines, n = counted(quickstart.run, device)
+    on_cpu, _ = run_example(quickstart.run, cpu)
+    for line in lines:
+        log(f"[4e]   quickstart: {line}")
+    for name, res in card.items():
+        got = np.array(res.fit_history + res.diff_history)
+        want = np.array(on_cpu[name].fit_history + on_cpu[name].diff_history)
+        tol = (FIXED_SMALL_ATOL + FIXED_SMALL_RTOL * np.abs(want) if name == "fixed"
+               else SMALL_ATOL)
+        gap = float(np.abs(got - want).max())
+        log(f"[4e] quickstart {name}: card fit={res.fit_history} cpu fit="
+            f"{on_cpu[name].fit_history} max gap (fit, diff)={gap:.3e}")
+        if not np.all(np.abs(got - want) <= tol):
+            fail(f"phase 4e: the quickstart's {name} row on the card left the CPU's")
+    log(f"[4e] quickstart launches {n}")
+    if n != dict(float=9, fixed=9, pinv=36):
+        fail(f"phase 4e: the quickstart launched {n}, expected 9 float (kernel row), 9 fixed "
+             "(fixed row), 36 Gram (3 per iteration of each row)")
+
+    def argv(engine, *extra):
+        return ["--tensor", "nell2", "--iters", str(N_ITERS), "--engine", engine, *extra]
+
+    def iter_lines(lines):
+        return [ln for ln in lines if ln.startswith("  iter ")]
+
+    # 2. --engine kernel on the card against the same command on the CPU.
+    want_n = N_ITERS * 3
+    kern, lines, n = counted(decompose_tensor.run, decompose_tensor.parse_args(argv("kernel")),
+                             device)
+    cpu_kern, _ = run_example(decompose_tensor.run, decompose_tensor.parse_args(argv("kernel")),
+                              cpu)
+    gap = max(abs(a - b) for a, b in zip(kern.fit_history + kern.diff_history,
+                                         cpu_kern.fit_history + cpu_kern.diff_history,
+                                         strict=True))
+    for line in lines:
+        log(f"[4e]   kernel: {line}")
+    log(f"[4e] decompose_tensor --engine kernel: launches {n}, fits {kern.fit_history}, "
+        f"max gap to --device cpu (fit, diff)={gap:.3e} (tolerance {SMALL_ATOL})")
+    if n["float"] != want_n or n["pinv"] != want_n or n["fixed"]:
+        fail(f"phase 4e: --engine kernel launched {n}, expected {want_n} float and Gram")
+    if len(iter_lines(lines)) != N_ITERS or not all(
+            math.isfinite(f) for f in kern.fit_history) or len(kern.fit_history) != N_ITERS:
+        fail(f"phase 4e: --engine kernel printed {len(iter_lines(lines))} iterations or a "
+             "fit that is not finite")
+    if gap > SMALL_ATOL:
+        fail("phase 4e: --engine kernel on the card left the CPU run")
+
+    # 3. --engine fixed (int7) through main.
+    rc, lines, n = counted(decompose_tensor.main, argv("fixed"))
+    log(f"[4e] decompose_tensor --engine fixed: exit {rc}, launches {n}; "
+        + " | ".join(ln.strip() for ln in iter_lines(lines)))
+    if rc != 0 or n["fixed"] != want_n or n["float"] or len(iter_lines(lines)) != N_ITERS:
+        fail(f"phase 4e: --engine fixed exited {rc} with launches {n}, expected {want_n} fixed")
+
+    # 4. --engine auto twice on one fresh store: the second run is warm.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        tuned = []
+        for run_no in (1, 2):
+            rc, lines, n = counted(decompose_tensor.main,
+                                   argv("auto", "--store", str(Path(tmp) / "s.json")))
+            shown = [ln for ln in lines if ln.startswith(("  winners:", "[decompose] tuning:",
+                                                          "[decompose] engine="))]
+            log(f"[4e] decompose_tensor --engine auto, run {run_no}: exit {rc}, launches {n}; "
+                + " | ".join(ln.strip() for ln in shown))
+            tuning = [ln for ln in shown if ln.startswith("[decompose] tuning:")]
+            if rc != 0 or len(tuning) != 1 or len(iter_lines(lines)) != N_ITERS:
+                fail(f"phase 4e: --engine auto run {run_no} exited {rc} or printed no tuning")
+            tuned.append(tuning[0])
+    if re.search(r"probes=0\b", tuned[0]) or not re.search(r"probes=0\b", tuned[1]):
+        fail(f"phase 4e: the cold and warm --engine auto runs printed {tuned}, expected "
+             "probes on the first and probes=0 on the second")
+
+    # 5. --engine distributed on a one-rank NCCL group.
+    try:
+        res, lines, n = counted(decompose_tensor.run,
+                                decompose_tensor.parse_args(argv("distributed")), device)
+        backend = dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    gap = max(abs(a - b) for a, b in zip(res.fit_history, kern.fit_history, strict=True))
+    log(f"[4e] decompose_tensor --engine distributed on {backend}: launches {n}, fits "
+        f"{res.fit_history}, max |fit - kernel's|={gap:.3e} (tolerance {FIT_ATOL})")
+    if backend != "nccl" or n["float"] != want_n or gap > FIT_ATOL:
+        fail(f"phase 4e: --engine distributed on {backend} launched {n}, expected {want_n} "
+             "float, or its fits left --engine kernel's")
+
+    # 6. --list-backends: `kernel` in the place of `pallas`.
+    rc, lines = run_example(decompose_tensor.main, ["--list-backends"])
+    names = [ln.split("|")[1].strip().strip("`") for ln in lines[2:]]
+    log(f"[4e] decompose_tensor --list-backends: exit {rc}, backends {names}")
+    if rc != 0 or "kernel" not in names or "pallas" in names:
+        fail(f"phase 4e: --list-backends exited {rc} and listed {names}")
+    return dict(total)
+
+
 def sweep_checks(device) -> None:
     """Phase 4w: the CI grid of benchmarks/sweep_ci.toml plus the `kernel`
     candidate swept into a fresh store on the card, swept again (0
@@ -2049,19 +2187,6 @@ def main() -> int:
         fail("the kernel engine's factors left the plain engine's")
     kernel_run = res
     del plain
-    # A small input whose fit stands far above the residual's float32
-    # resolution: the kernel engine on the card against the plain engine on
-    # the CPU, which the CPU tests hold against the JAX package.
-    small = rt.table1_tensor("nell2")
-    on_card = rt.cp_als(small, RANK, n_iters=3, engine="kernel")
-    on_cpu = rt.cp_als(small, RANK, n_iters=3, engine="chunked", device="cpu")
-    small_gap = max(abs(a - b) for a, b in zip(on_card.fit_history + on_card.diff_history,
-                                               on_cpu.fit_history + on_cpu.diff_history,
-                                               strict=True))
-    log(f"[4]   TABLE1 nell2: card fit={on_card.fit_history} cpu fit={on_cpu.fit_history} "
-        f"max gap (fit, diff)={small_gap:.3e} (tolerance {SMALL_ATOL})")
-    if small_gap > SMALL_ATOL:
-        fail("the kernel engine on the card left the CPU path on TABLE1 nell2")
 
     # 4p. The Gram pseudo-inverse kernel against its plain version.
     t0 = time.perf_counter()
@@ -2079,6 +2204,12 @@ def main() -> int:
     log(f"[4d] phase took {time.perf_counter() - t0:.1f}s")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+    # 4e. The example CLIs on the card (their launches stay off the kernels line).
+    t0 = time.perf_counter()
+    ex_launches = examples_checks(device)
+    log(f"[4e] phase took {time.perf_counter() - t0:.1f}s; kernel launches {ex_launches} "
+        f"(autotune probes included; not on the kernels line)")
 
     # 4f. Fixed-point path: int7 on NELL-2 (the paper's mode-3 format),
     # int15-12 on LBNL (its mode-5 format).

@@ -41,7 +41,7 @@ from ..core.distributed import DistributedMTTKRP
 from ..core.qformat import FIXED_PRESETS, value_qformat
 from ..formats.alto import MAX_KEY_BITS, alto_key_bits
 from ..kernels import ops as kops
-from ..launch.mesh import make_local_mesh, mesh_axes, world_size
+from ..launch.mesh import join_launched_group, make_local_mesh, mesh_axes, world_size
 from .registry import EngineContext, register_backend
 
 __all__ = []  # backends are reached through the registry, not by import
@@ -194,8 +194,10 @@ def _build_distributed(ctx: EngineContext):
     # Default to a real model axis when there are ranks for it, so rank
     # partitioning (the paper's favored, replication-free partitioning) is
     # exercised, not just the data/task axis.
-    mesh = (ctx.mesh if ctx.mesh is not None
-            else make_local_mesh(n_model=2 if world_size() >= 2 else 1, device=ctx.device))
+    mesh = ctx.mesh
+    if mesh is None:
+        join_launched_group(ctx.device)  # under a launcher, the mesh spans its ranks
+        mesh = make_local_mesh(n_model=2 if world_size() >= 2 else 1, device=ctx.device)
     if mesh.device_type != ctx.device.type:
         raise ValueError(f"the mesh is over {mesh.device_type} ranks; the engine's device "
                          f"is {ctx.device}")

@@ -6,7 +6,9 @@ Multi-rank runs are spawned: one gloo run of 8 ranks on a (4, 2) mesh
 chunk-padded ones, 3 CP-ALS iterations through the engine) beside one JAX
 run on 8 host devices, and one 2-rank run of the SPMD autotuner.  Every
 subprocess has a timeout, so a rank stuck in a collective fails the test
-instead of hanging the suite.  The one-rank tests destroy their process
+instead of hanging the suite.  One more 2-rank run goes through
+`torch.distributed.run`: a library call that makes no group of its own
+joins the launcher's.  The one-rank tests destroy their process
 group again, so no other test of the worker sees one.
 
 Tolerances: MTTKRP per entry within 1e-5 of the sum of the absolute values
@@ -162,6 +164,24 @@ _REFERENCE_RUN = textwrap.dedent("""
                                       seed=spec["cp_seed"]).fit_history
     with open(out, "w") as f:
         json.dump(res, f)
+""")
+
+
+#: A library call under torch.distributed.run, the caller making no group.
+_LAUNCHED_LIBRARY = textwrap.dedent("""
+    import json, os, sys
+    import torch, torch.distributed as dist
+    torch.set_num_threads(1)
+    import repro_torch as rt
+    out, spec = sys.argv[1], json.loads(sys.argv[2])
+    shape, nnz, seed, cs, cap = spec["case"]
+    st = rt.random_tensor(tuple(shape), nnz, seed=seed)
+    res = rt.cp_als(st, spec["rank"], n_iters=3, engine="distributed", device="cpu",
+                    seed=spec["cp_seed"], chunk_shape=tuple(cs), capacity=cap)
+    with open(f"{out}/launched.{os.environ['RANK']}.json", "w") as f:
+        json.dump(dict(world=dist.get_world_size(), backend=dist.get_backend(),
+                       engine=res.engine, fit=res.fit_history), f)
+    dist.destroy_process_group()
 """)
 
 
@@ -362,3 +382,23 @@ def test_spmd_autotune_ranks_agree(tmp_path):
     assert r0["warm_winners"] == r0["winners"]
     assert r0["saves"] >= 1 and r1["saves"] == 0
     assert store.exists()
+
+
+def test_library_call_under_the_launcher_joins_its_group(tmp_path):
+    """`rt.cp_als(engine="distributed")` under torch.distributed.run, with
+    no group of the caller's: the mesh spans the launcher's two ranks (not
+    a one-rank group in each process), and the fits are the `chunked`
+    engine's in one process."""
+    shape, nnz, seed, cs, cap = CASES["base"]
+    spec = {"rank": RANK, "case": CASES["base"], "cp_seed": CP_SEED}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "--no-python", sys.executable, "-c", _LAUNCHED_LIBRARY, str(tmp_path),
+         json.dumps(spec)],
+        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    _wait([proc])
+    want = rt.cp_als(rt.random_tensor(shape, nnz, seed=seed), RANK, n_iters=3, engine="chunked",
+                     device="cpu", seed=CP_SEED, chunk_shape=cs, capacity=cap).fit_history
+    for got in _results("launched", 2, tmp_path):
+        assert (got["world"], got["backend"], got["engine"]) == (2, "gloo", "distributed")
+        np.testing.assert_allclose(got["fit"], want, rtol=0, atol=FIT_ATOL)

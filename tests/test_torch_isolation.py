@@ -1,6 +1,6 @@
 """The port stands alone: importing `repro_torch` loads neither JAX nor the
 JAX package, builds no kernel, and no file of the port (or chip_smoke.py)
-imports either (nor the JAX harness, `benchmarks`)."""
+imports either (nor the JAX harness, `benchmarks`, or its `examples`)."""
 import ast
 import json
 import os
@@ -12,7 +12,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks", "examples")
 
 
 def test_import_loads_no_jax_and_no_reference():
@@ -22,6 +22,7 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.batch, repro_torch.serve, repro_torch.obs, repro_torch.obs.__main__\n"
         "import repro_torch.sweep, repro_torch.roofline, repro_torch.core.distributed\n"
         "import repro_torch.launch, repro_torch.analysis, repro_torch.analysis.__main__\n"
+        "import repro_torch.examples.decompose_tensor, repro_torch.examples.quickstart\n"
         "assert not repro_torch.kernels._build._libs  # nothing built on import\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "    if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))))\n")
