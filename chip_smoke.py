@@ -178,6 +178,25 @@ Phases, each fatal on failure:
      iterations against the rest, steady iteration ms per bucket, the
      padded arrays' bytes and the call's peak device memory; 64 sampled
      members held against the sequential `ref`;
+     4l. (after 4b) the LM serving path (`repro_torch.models`,
+     `launch.steps.generate`), which reaches none of the three kernels (the
+     reference computes it in plain jnp; checked: 0 launches): the example
+     `repro_torch.examples.serve_lm --arch gemma3-4b --batch 4` (smoke
+     config, prompt 24, gen 12); that smoke config through `generate` on the
+     card and on the CPU from one set of weights, at float32 (tokens equal,
+     each teacher-forced step's logits within 1e-4 of Σ|terms| of the final
+     product) and at bfloat16 (the first step's logits within 2^-5 of the
+     CPU's largest |logit|); gemma3-4b at full width (34 layers, d_model
+     2560, vocab 262,144, float32 weights from `torch.Generator` seed 0 on
+     the card, bfloat16 compute) through `generate` at batch 4, prompt 24
+     (`SyntheticTokens` seed 0), gen 12, twice (identical tokens in
+     [0, vocab)), printing ms per decode step (host clock around
+     `torch.cuda.synchronize`, mean over steps 4 onward) beside the step's
+     bytes bound (the float32 weights read once), generated tokens/s, peak
+     device memory and the parameter count; and the ring buffer at full
+     width: 6 layers (one 5:1 pattern) at float32 over a 1,040-token prompt,
+     past the 1,024 window, the teacher-forced decode's last logits within
+     1e-3 of the largest |logit| of `LM.prefill` over the same tokens;
   6. print the `kernels` line, then, last, the device line.
 
 Tolerance (phases 3 and 4): the float kernel forms each nonzero's product
@@ -246,7 +265,12 @@ from repro_torch.bench.__main__ import main as bench_main  # noqa: E402
 from repro_torch.bench.serve_bench import member_gap, solve_kappa, synthetic_load  # noqa: E402
 from repro_torch.batch.cpals import _init_batched  # noqa: E402
 from repro_torch.engine import PlanCache, TuningStore, default_plan_cache  # noqa: E402
-from repro_torch.examples import decompose_tensor, quickstart  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.data import SyntheticTokens  # noqa: E402
+from repro_torch.examples import decompose_tensor, quickstart, serve_lm  # noqa: E402
+from repro_torch.launch.steps import generate, make_decode_step  # noqa: E402
+from repro_torch.models import LM, MeshCtx  # noqa: E402
+from repro_torch.models import nn as lm_nn  # noqa: E402
 from repro_torch.core.mttkrp import _alto_decode  # noqa: E402
 from repro_torch.engine.calibrate import MIN_OBSERVATIONS  # noqa: E402
 from repro_torch.obs import capture  # noqa: E402
@@ -1629,6 +1653,194 @@ def batched_scale(device) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4l: the LM serving path (repro_torch.models, launch.steps.generate).
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "gemma3-4b"              # examples/serve_lm.py's default arch
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 24, 12
+LM_TIMED_FROM = 4                  # ms per decode step: the mean over steps 4 onward
+LM_F32_REL = 1e-4                  # card vs CPU at float32, each logit, of Σ|terms|
+# Card vs CPU at bfloat16, the first step's logits, of the CPU's largest
+# |logit|: four to eight bfloat16 steps of that logit.  Both sides round
+# every elementwise step alike; the float32 sums inside the products and
+# reductions differ in order, so a rounding flips now and then.
+LM_BF16_REL = 2.0 ** -5
+LM_RING_LAYERS, LM_RING_PROMPT = 6, 1040   # one 5:1 pattern; past the 1,024 window
+LM_RING_REL = 1e-3                 # decode vs prefill at float32, of the largest |logit|
+
+
+def lm_decode_logits(lm, params, tokens) -> tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced decode over tokens (B, S) on their device: every
+    step's logits (S, B, V), and Σ|terms| of each logit's final product
+    (|h| @ |W|, h the hidden state `_logits` is given)."""
+    seen, logits_of = [], lm._logits
+
+    def record(p, x):
+        seen.append(x.float())
+        return logits_of(p, x)
+    lm._logits = record
+    try:
+        b, s = tokens.shape
+        cache = lm.init_cache(b, max_len=s + 8, dtype=torch.float32, device=tokens.device)
+        step = make_decode_step(lm, MeshCtx(mesh=None))
+        out = []
+        with torch.no_grad():
+            for t in range(s):
+                logits, cache = step(params, tokens[:, t:t + 1], cache, t)
+                out.append(logits.float())
+    finally:
+        del lm._logits
+    w = params["embed"]["w"].T if lm.cfg.tie_embeddings else params["unembed"]["w"]
+    terms = torch.stack([h[:, 0].abs() @ w.float().abs() for h in seen])
+    return torch.stack(out), terms
+
+
+def lm_card_vs_cpu(device) -> None:
+    """The smoke config through `generate` on the card and the CPU, one set
+    of weights, at float32 and at bfloat16."""
+    cfg32 = dataclasses.replace(get_smoke_config(LM_ARCH), compute_dtype="float32")
+    params_cpu, _ = LM(cfg32).init(torch.Generator("cpu").manual_seed(0))
+    params_card = lm_nn.tree_map(lambda a: a.to(device), params_cpu)
+    prompts = torch.from_numpy(SyntheticTokens(cfg32.vocab, LM_PROMPT, LM_BATCH).batch(0))
+    ctx = MeshCtx(mesh=None)
+    for cfg in (cfg32, get_smoke_config(LM_ARCH)):
+        lm = LM(cfg)
+        toks_cpu = generate(lm, params_cpu, ctx, prompts, LM_GEN)
+        toks_card = generate(lm, params_card, ctx, prompts.to(device), LM_GEN).cpu()
+        if cfg.compute_dtype == "float32":
+            # every step of the CPU run, teacher-forced on both sides
+            seq = torch.cat([prompts, toks_cpu], dim=1)[:, :-1]
+            want, terms = lm_decode_logits(lm, params_cpu, seq)
+            got, _ = lm_decode_logits(lm, params_card, seq.to(device))
+            err = (got.cpu() - want).abs()
+            ok = bool((err <= LM_F32_REL * terms).all()) and torch.equal(toks_card, toks_cpu)
+            log(f"[4l] card vs CPU, {cfg.name} float32: tokens equal "
+                f"{torch.equal(toks_card, toks_cpu)}, {seq.shape[1]} steps' logits max |Δ| "
+                f"{float(err.max()):.3e}, max |Δ|/Σ|terms| {float((err / terms).max()):.3e} "
+                f"(tolerance {LM_F32_REL})")
+        else:
+            want, _ = lm_decode_logits(lm, params_cpu, prompts[:, :1])
+            got, _ = lm_decode_logits(lm, params_card, prompts[:, :1].to(device))
+            err = float((got.cpu() - want).abs().max())
+            ok = err <= LM_BF16_REL * float(want.abs().max())
+            log(f"[4l] card vs CPU, {cfg.name} bfloat16: first step's logits max |Δ| {err:.3e}, "
+                f"{err / float(want.abs().max()):.3e} of the largest |logit| (tolerance "
+                f"{LM_BF16_REL}); tokens equal {torch.equal(toks_card, toks_cpu)} (not held)")
+        if not ok:
+            fail(f"phase 4l: the {cfg.compute_dtype} smoke config on the card left the CPU's")
+
+
+def lm_full_width(device, smi_line: str) -> None:
+    """gemma3-4b at its published widths through `generate`, twice."""
+    cfg = get_config(LM_ARCH)
+    lm = LM(cfg)
+    ctx = MeshCtx(mesh=None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params, _ = lm.init(torch.Generator(device).manual_seed(0))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = lm_nn.param_count(params)
+    prompts = torch.from_numpy(SyntheticTokens(cfg.vocab, LM_PROMPT, LM_BATCH, seed=0).batch(0))
+    prompts = prompts.to(device)
+
+    step_s = []
+    decode_step = lm.decode_step
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = decode_step(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+    lm.decode_step = timed
+    try:
+        toks1 = generate(lm, params, ctx, prompts, LM_GEN).cpu()
+    finally:
+        del lm.decode_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks2 = generate(lm, params, ctx, prompts, LM_GEN).cpu()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = 1e3 * sum(step_s[LM_TIMED_FROM:]) / len(step_s[LM_TIMED_FROM:])
+    weight_bytes = 4 * n_params  # float32, each read once per step
+    bound_ms = 1e3 * weight_bytes / HBM_BYTES_PER_S
+    log(f"[4l] full width {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {n_params} parameters ({weight_bytes / 2**30:.3f} GiB float32), "
+        f"init {t_init:.2f}s, compute {cfg.compute_dtype}")
+    log(f"[4l]   generate batch {LM_BATCH} prompt {LM_PROMPT} gen {LM_GEN}: "
+        f"{len(step_s)} decode steps, ms per step (mean of steps {LM_TIMED_FROM}+) "
+        f"{step_ms:.3f} (steps {[round(1e3 * x, 3) for x in step_s]}), bytes bound "
+        f"{bound_ms:.3f} ms (the float32 weights read once); untimed run {wall:.3f}s, "
+        f"{LM_BATCH * LM_GEN / wall:.1f} generated tokens/s; device memory peak "
+        f"{peak / 2**30:.3f} GiB, of which {(peak - resident) / 2**30:.3f} GiB above what "
+        f"was resident before the phase; on {smi_line}")
+    log(f"[4l]   tokens {toks2.tolist()}")
+    if not (torch.equal(toks1, toks2) and toks2.shape == (LM_BATCH, LM_GEN)
+            and toks2.dtype == torch.int32
+            and bool(((toks2 >= 0) & (toks2 < cfg.vocab)).all())):
+        fail("phase 4l: the two full-width runs gave other tokens, or tokens outside the vocab")
+
+
+def lm_ring(device) -> None:
+    """Gemma3-4b's widths at one 5:1 pattern, float32: the teacher-forced
+    decode of a prompt past the window (its rings wrap) against prefill."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_RING_LAYERS,
+                              compute_dtype="float32")
+    lm = LM(cfg)
+    ctx = MeshCtx(mesh=None)
+    params, _ = lm.init(torch.Generator(device).manual_seed(0))
+    toks = torch.from_numpy(SyntheticTokens(cfg.vocab, LM_RING_PROMPT, 2, seed=0).batch(0))
+    toks = toks.to(device)
+    with torch.no_grad():
+        want = lm.prefill(params, ctx, {"tokens": toks})[:, 0]
+        cache = lm.init_cache(2, max_len=LM_RING_PROMPT + 8, dtype=torch.float32,
+                              device=device)
+        for t in range(LM_RING_PROMPT):
+            got, cache = lm.decode_step(params, ctx, toks[:, t:t + 1], cache, t)
+    ring = cache[0][0]["kv"]
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"[4l] ring: {cfg.n_layers} layers at full width, float32, prompt {LM_RING_PROMPT}; "
+        f"local ring {ring['k'].shape[1]} slots holding positions "
+        f"{int(ring['pos'].min())}..{int(ring['pos'].max())}; decode vs prefill max |Δ| "
+        f"{err:.3e}, {err / scale:.3e} of the largest |logit| (tolerance {LM_RING_REL})")
+    if ring["k"].shape[1] != cfg.window or int(ring["pos"].min()) != LM_RING_PROMPT - cfg.window:
+        fail("phase 4l: the local layer's ring did not wrap")
+    if err > LM_RING_REL * scale:
+        fail("phase 4l: the decode past the window left prefill")
+
+
+def lm_checks(device, smi_line: str) -> None:
+    """Phase 4l; fatal on any failure.  None of the three kernels is on
+    this path: their counts must stay 0."""
+    mttkrp_kernel.launches = 0
+    mttkrp_fixed_kernel.launches = 0
+    gram_pinv.launches = 0
+    # 1. The example at its defaults (the smoke config), on the card.
+    rc, lines = run_example(serve_lm.main, ["--arch", LM_ARCH, "--batch", str(LM_BATCH)])
+    for line in lines:
+        log(f"[4l] serve_lm: {line}")
+    if rc != 0 or not lines or f"-> ({LM_BATCH}, {LM_GEN})" not in lines[0]:
+        fail(f"phase 4l: the serve_lm example exited {rc} or printed {lines[:1]}")
+    # 2. Card against CPU, 3. full width, 4. the ring at full width.
+    lm_card_vs_cpu(device)
+    torch.cuda.empty_cache()
+    lm_full_width(device, smi_line)
+    torch.cuda.empty_cache()
+    lm_ring(device)
+    torch.cuda.empty_cache()
+    counts = (mttkrp_kernel.launches, mttkrp_fixed_kernel.launches, gram_pinv.launches)
+    log(f"[4l] kernel launches (float, fixed, Gram): {counts}")
+    if any(counts):
+        fail(f"phase 4l: the LM path launched a kernel of the CP-ALS path: {counts}")
+
+
+# ---------------------------------------------------------------------------
 # Phase 4p: the Gram pseudo-inverse kernel (csrc/gram_pinv.cu).
 # ---------------------------------------------------------------------------
 
@@ -2368,6 +2580,11 @@ def main() -> int:
         fail(f"the serving path launched the float kernel {mttkrp_kernel.launches} times, "
              f"the fixed one {mttkrp_fixed_kernel.launches} times (expected 0) and the Gram "
              f"kernel {gram_pinv.launches} times (expected some)")
+
+    # 4l. The LM serving path: gemma3-4b at full width.
+    t0 = time.perf_counter()
+    lm_checks(device, smi.splitlines()[0])
+    log(f"[4l] phase took {time.perf_counter() - t0:.1f}s on {smi.splitlines()[0]}")
     smi_after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,

@@ -43,6 +43,8 @@ TORCH_TARGETS = (
     "src/repro_torch/batch",
     "src/repro_torch/serve",
     "src/repro_torch/obs",
+    "src/repro_torch/models",
+    "src/repro_torch/launch",
 )
 
 

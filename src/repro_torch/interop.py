@@ -15,9 +15,11 @@ from .batch.bucketing import PaddedBatch
 from .core.chunking import ChunkedTensor
 from .core.sptensor import SparseTensor
 from .device import resolve_device
+from .models.nn import tree_map
+from .models.transformer import segment_layout
 
-__all__ = ["chunked_from_reference", "factors_from_reference", "padded_batch_from_reference",
-           "qfactors_from_reference", "tensor_from_reference"]
+__all__ = ["chunked_from_reference", "factors_from_reference", "lm_params_from_reference",
+           "padded_batch_from_reference", "qfactors_from_reference", "tensor_from_reference"]
 
 
 def tensor_from_reference(st) -> SparseTensor:
@@ -71,4 +73,23 @@ def qfactors_from_reference(qfactors, device: str | torch.device | None = None):
         if a.dtype.kind != "i":
             raise TypeError(f"quantized factors must be signed integers; got {a.dtype}")
         out.append(torch.from_numpy(a).to(device))
+    return out
+
+
+def lm_params_from_reference(params, cfg, device: str | torch.device | None = None) -> dict:
+    """The reference's `LM.init` params (numpy or JAX arrays) as the port's,
+    on `device` (None → the CUDA card), same dtypes.  The reference stacks
+    each segment's pattern slot over its repeats (`{"b0": stacked, ...}`);
+    repeat r of slot j becomes the port's layer r·len(pattern) + j of that
+    segment."""
+    device = resolve_device(device)
+
+    def to_tensor(a):
+        return torch.from_numpy(np.array(a)).to(device)
+    out = {k: tree_map(to_tensor, v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [
+        [tree_map(lambda a, r=r: to_tensor(np.asarray(a)[r]), seg_p[f"b{j}"])
+         for r in range(reps) for j in range(len(pat))]
+        for seg_p, (pat, reps) in zip(params["layers"], segment_layout(cfg.n_layers, cfg.pattern),
+                                      strict=True)]
     return out

@@ -18,7 +18,7 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
-__all__ = ["join_launched_group", "make_local_mesh", "mesh_axes", "world_rank",
+__all__ = ["dp_axes", "join_launched_group", "make_local_mesh", "mesh_axes", "world_rank",
            "world_size"]
 
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
@@ -82,3 +82,9 @@ def make_local_mesh(n_data: int | None = None, n_model: int = 1, *,
 def mesh_axes(mesh) -> dict:
     """{axis name: size} of a named mesh."""
     return dict(zip(mesh.mesh_dim_names, mesh.shape, strict=True))
+
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    """Batch-parallel axes: pod (if present) + data."""
+    names = mesh.mesh_dim_names
+    return tuple(a for a in ("pod", "data") if a in names)

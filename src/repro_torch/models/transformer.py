@@ -1,0 +1,266 @@
+"""Block composition and layer stacking (counterpart of
+`repro.models.transformer`).
+
+A model is a list of *segments*; each segment is a repeating pattern of
+blocks (gemma3-4b: the 6-pattern five times, then a remainder of four
+local layers).  The reference stacks each pattern slot's weights over the
+repeats and scans them; here a segment is a plain list of its layers in
+order, layer r·len(pattern) + j being repeat r of pattern slot j, and the
+stack is a Python loop.  `cfg.remat` and `cfg.unroll_stack` steer the
+reference's compiled scan and mean nothing here.
+
+Blocks are pre-norm residual: x + Mixer(LN(x)); x + MLP(LN(x)).  This slice
+serves the dense family on one card: the attention mixer with a dense MLP
+or none.  The other mixers, the MoE MLP, cross-attention and the
+multi-card MLP raise NotImplementedError naming the slice that ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from . import attention as attn_mod
+from . import nn
+
+__all__ = ["LayerSpec", "MeshCtx", "block_init", "block_apply", "block_decode",
+           "init_block_cache", "segment_layout", "stack_init", "stack_apply",
+           "stack_decode", "init_stack_cache"]
+
+#: The slice of the port that brings each part of the reference's stack.
+LATER_SLICES = {
+    "mamba": "the SSM and xLSTM slice",
+    "mlstm": "the SSM and xLSTM slice",
+    "slstm": "the SSM and xLSTM slice",
+    "moe": "the MoE slice",
+    "cross_attn": "the enc-dec and VLM slice",
+    "multi-card": "the tensor-parallel serving slice",
+}
+
+
+def later(part: str) -> NotImplementedError:
+    return NotImplementedError(f"{part} is not ported yet: it comes with {LATER_SLICES[part]}")
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    mixer: str = "attn"          # attn | mamba | mlstm | slstm
+    attn_kind: str = "global"    # global | local | chunked
+    mlp: str = "dense"           # dense | moe | none
+    cross_attn: bool = False     # enc-dec decoder blocks
+    causal: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshCtx:
+    """The reference's sharding context.  With no mesh, or a mesh of one
+    rank, every constraint is a no-op; a mesh of more ranks raises (the
+    multi-card LM is a later slice)."""
+    mesh: Any
+    dp: tuple[str, ...] = ("data",)
+    tp: str = "model"
+    seq_sharded: bool = True
+
+    def shard(self, x, *spec):
+        if self.mesh is None or self.mesh.size() == 1:
+            return x
+        raise later("multi-card")
+
+    def resid(self, x):
+        sp = self.tp if self.seq_sharded else None
+        return self.shard(x, self.dp, sp, None)
+
+
+def _check_spec(spec: LayerSpec) -> None:
+    if spec.mixer != "attn":
+        raise later(spec.mixer) if spec.mixer in LATER_SLICES else ValueError(spec.mixer)
+    if spec.mlp == "moe":
+        raise later("moe")
+    if spec.cross_attn:
+        raise later("cross_attn")
+
+
+# ---------------------------------------------------------------------------
+# Block init
+# ---------------------------------------------------------------------------
+
+def _attn_cfg(cfg, spec: LayerSpec) -> attn_mod.AttnConfig:
+    return attn_mod.AttnConfig(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, causal=spec.causal,
+        window=cfg.window if spec.attn_kind == "local" else None,
+        chunk=cfg.chunk_attn if spec.attn_kind == "chunked" else None,
+        qk_norm=cfg.qk_norm,
+        rope=cfg.rope and not (spec.attn_kind == "global" and cfg.nope_global),
+        rope_theta=cfg.rope_theta, softcap=cfg.attn_softcap, bias=cfg.bias,
+        q_block=cfg.q_block, kv_block=cfg.kv_block,
+    )
+
+
+def _cross_cfg(cfg) -> attn_mod.AttnConfig:
+    return dataclasses.replace(
+        _attn_cfg(cfg, LayerSpec(causal=False)), causal=False, rope=False)
+
+
+def _mlp_init(generator: torch.Generator, cfg):
+    d, f = cfg.d_model, cfg.d_ff
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=generator, device=generator.device).mul_(scale)
+
+    if cfg.mlp_act in ("gelu2", "relu2"):  # plain 2-matrix MLP (whisper/minitron)
+        p = {"w1": normal((d, f), d ** -0.5), "w2": normal((f, d), f ** -0.5)}
+        s = {"w1": ("embed", "ffn"), "w2": ("ffn", "embed")}
+    else:  # gated: swiglu / geglu
+        p = {"wg": normal((d, f), d ** -0.5), "wu": normal((d, f), d ** -0.5),
+             "wd": normal((f, d), f ** -0.5)}
+        s = {"wg": ("embed", "ffn"), "wu": ("embed", "ffn"), "wd": ("ffn", "embed")}
+    return p, s
+
+
+# jax.nn.gelu (its default, the tanh approximation) and jax.nn.silu written
+# op by op, each step rounded to v's dtype as jnp rounds it, so that a
+# bfloat16 activation is the reference's bit for bit (F.gelu(approximate=
+# "tanh") and F.silu round once, and differ from it in the last bit of
+# about a third of the bfloat16 entries).
+
+def _gelu(v):
+    c0 = nn.weak(0.044715, v.dtype)
+    c1 = nn.weak(math.sqrt(2 / math.pi), v.dtype)
+    return v * (0.5 * (1.0 + torch.tanh(c1 * (v + c0 * (v * v * v)))))
+
+
+def _silu(v):
+    return v * (1.0 / (1.0 + torch.exp(-v)))
+
+
+def _acts(cfg):
+    acts = {"gelu": _gelu, "gelu2": _gelu, "geglu": _gelu,
+            "relu2": lambda v: torch.square(F.relu(v))}
+    return acts.get(cfg.mlp_act, _silu)
+
+
+def _mlp_apply(p, cfg, ctx: MeshCtx, x):
+    act = _acts(cfg)
+    if cfg.mlp_act in ("gelu2", "relu2"):  # non-gated 2-matrix MLP
+        h = act(x @ p["w1"].to(x.dtype))
+        h = ctx.shard(h, ctx.dp, None, ctx.tp)
+        return h @ p["w2"].to(x.dtype)
+    h = act(x @ p["wg"].to(x.dtype)) * (x @ p["wu"].to(x.dtype))
+    h = ctx.shard(h, ctx.dp, None, ctx.tp)
+    return h @ p["wd"].to(x.dtype)
+
+
+def _mlp_manual_sp(p, cfg, ctx: MeshCtx, h):
+    """The reference's explicit Megatron-SP MLP collectives (`cfg.manual_sp`)
+    need a mesh of more than one rank.  On one rank the reference's manual
+    schedule computes `_mlp_apply`, which `block_apply` calls."""
+    raise later("multi-card")
+
+
+def block_init(generator: torch.Generator, cfg, spec: LayerSpec):
+    _check_spec(spec)
+    p, s = {}, {}
+    p["ln1"], s["ln1"] = nn.rmsnorm_init(cfg.d_model, generator.device)
+    p["attn"], s["attn"] = attn_mod.attn_init(generator, _attn_cfg(cfg, spec))
+    if spec.mlp != "none":
+        p["ln2"], s["ln2"] = nn.rmsnorm_init(cfg.d_model, generator.device)
+        p["mlp"], s["mlp"] = _mlp_init(generator, cfg)
+    return p, s
+
+
+# ---------------------------------------------------------------------------
+# Block apply (train / prefill)
+# ---------------------------------------------------------------------------
+
+def block_apply(p, cfg, spec: LayerSpec, ctx: MeshCtx, x, *, positions):
+    _check_spec(spec)
+    h = nn.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h = ctx.shard(h, ctx.dp, None, None)  # gather seq for attention
+    out, _ = attn_mod.attention(p["attn"], _attn_cfg(cfg, spec), h, positions=positions)
+    x = ctx.resid(x + ctx.resid(out))
+    if spec.mlp != "none":
+        h = nn.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        x = ctx.resid(x + _mlp_apply(p["mlp"], cfg, ctx, h))
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Block decode (single token against cache)
+# ---------------------------------------------------------------------------
+
+def init_block_cache(cfg, spec: LayerSpec, batch: int, max_len: int,
+                     dtype=torch.bfloat16, *, device: torch.device):
+    _check_spec(spec)
+    return {"kv": attn_mod.init_kv_cache(_attn_cfg(cfg, spec), batch, max_len, dtype,
+                                         device=device)}
+
+
+def block_decode(p, cfg, spec: LayerSpec, ctx: MeshCtx, x, cache, pos: int):
+    """One token through one block; `cache` is updated in place and returned."""
+    _check_spec(spec)
+    h = nn.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    out, cache["kv"] = attn_mod.attn_decode(p["attn"], _attn_cfg(cfg, spec), h,
+                                            cache["kv"], pos)
+    x = x + out
+    if spec.mlp != "none":
+        h = nn.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        x = x + _mlp_apply(p["mlp"], cfg, ctx, h)
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# Stacking: segments of repeated patterns, one list of layers per segment
+# ---------------------------------------------------------------------------
+
+def segment_layout(n_layers: int, pattern: tuple[LayerSpec, ...]):
+    """[(pattern, n_repeats), (remainder_pattern, 1)] covering n_layers."""
+    plen = len(pattern)
+    reps, rem = divmod(n_layers, plen)
+    segs = []
+    if reps:
+        segs.append((tuple(pattern), reps))
+    if rem:
+        segs.append((tuple(pattern[:rem]), 1))
+    return segs
+
+
+def _layers(pat, reps):
+    """The specs of a segment's layers in order: pattern slot j of repeat r
+    at r·len(pat) + j."""
+    return pat * reps
+
+
+def stack_init(generator: torch.Generator, cfg, pattern, n_layers: int):
+    """Per segment, the list of its layers' params (and specs)."""
+    segs = segment_layout(n_layers, pattern)
+    params, specs = [], []
+    for pat, reps in segs:
+        seg = [block_init(generator, cfg, spec) for spec in _layers(pat, reps)]
+        params.append([p for p, _ in seg])
+        specs.append([s for _, s in seg])
+    return params, specs, segs
+
+
+def stack_apply(params, cfg, segs, ctx: MeshCtx, x, *, positions):
+    for seg_p, (pat, reps) in zip(params, segs, strict=True):
+        for layer_p, spec in zip(seg_p, _layers(pat, reps), strict=True):
+            x = block_apply(layer_p, cfg, spec, ctx, x, positions=positions)
+    return x
+
+
+def init_stack_cache(cfg, segs, batch: int, max_len: int, dtype=torch.bfloat16, *,
+                     device: torch.device):
+    return [[init_block_cache(cfg, spec, batch, max_len, dtype, device=device)
+             for spec in _layers(pat, reps)] for pat, reps in segs]
+
+
+def stack_decode(params, cfg, segs, ctx: MeshCtx, x, caches, pos: int):
+    """One token through the stack; the caches are updated in place."""
+    for seg_p, seg_c, (pat, reps) in zip(params, caches, segs, strict=True):
+        for layer_p, layer_c, spec in zip(seg_p, seg_c, _layers(pat, reps), strict=True):
+            x, _ = block_decode(layer_p, cfg, spec, ctx, x, layer_c, pos)
+    return x, caches
