@@ -197,6 +197,26 @@ Phases, each fatal on failure:
      width: 6 layers (one 5:1 pattern) at float32 over a 1,040-token prompt,
      past the 1,024 window, the teacher-forced decode's last logits within
      1e-3 of the largest |logit| of `LM.prefill` over the same tokens;
+     4t. (after 4l) the LM training path (`repro_torch.optim`, `checkpoint`,
+     `launch.steps.make_train_step`, `launch.elastic`), which also reaches
+     none of the three kernels (checked: 0 launches): gemma3-4b's smoke
+     config, one set of weights, two steps of grad_accum 2 at float32
+     compute on the card and on the CPU, with float32 and with 8-bit moments
+     (tolerances at TRAIN_LOSS_REL below); gemma3-4b at full width (float32
+     weights, bfloat16 compute, remat on) with 8-bit moments,
+     AdamWConfig(lr=1e-4, use_8bit=True), on one `SyntheticTokens` batch
+     (seed 0, batch 4, sequence 256, grad_accum 2): 1 warm-up step, 3 timed
+     (host clock around `torch.cuda.synchronize`) and one under
+     `torch.profiler` (the device's busy share, the top device ops, the
+     launch count), printing ms per step, trained tokens/s, the losses, the
+     peak memory above what was resident, the FLOP bound (6·N·T + 2·N·T for
+     the remat forward, over BF16_FLOPS) and the optimizer pass's bytes
+     bound; the same widths at 6 layers with float32 moments; `compress_grad`
+     on the first layer's MLP up-projection gradient (2560 × 10240, R = 16)
+     on the card against the CPU; at 2 layers an `AsyncCheckpointer` save
+     while the next step runs, then `elastic_restore` into meta structure:
+     bit for bit the snapshot, and the next step's loss equal to the live
+     run's;
   6. print the `kernels` line, then, last, the device line.
 
 Tolerance (phases 3 and 4): the float kernel forms each nonzero's product
@@ -268,7 +288,10 @@ from repro_torch.engine import PlanCache, TuningStore, default_plan_cache  # noq
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.data import SyntheticTokens  # noqa: E402
 from repro_torch.examples import decompose_tensor, quickstart, serve_lm  # noqa: E402
-from repro_torch.launch.steps import generate, make_decode_step  # noqa: E402
+from repro_torch.checkpoint import AsyncCheckpointer  # noqa: E402
+from repro_torch.launch.elastic import elastic_restore  # noqa: E402
+from repro_torch.launch import steps as train_steps  # noqa: E402
+from repro_torch.launch.steps import generate, make_decode_step, make_train_step  # noqa: E402
 from repro_torch.models import LM, MeshCtx  # noqa: E402
 from repro_torch.models import nn as lm_nn  # noqa: E402
 from repro_torch.core.mttkrp import _alto_decode  # noqa: E402
@@ -285,7 +308,9 @@ from repro_torch.kernels import (  # noqa: E402
 )
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.launch import mesh_axes  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init, compress_grad, cp_compress_state  # noqa: E402
 from repro_torch.roofline import H100_SXM5, collective_bytes  # noqa: E402
+from repro_torch.roofline import model_flops as roofline_model_flops  # noqa: E402
 
 RANK = 10
 N_ITERS = 5
@@ -308,6 +333,7 @@ QUANT_CARD_RTOL = 1e-4
 # quant_error within 1% (the tolerances of tests/test_torch_fixed.py).
 FIXED_SMALL_ATOL, FIXED_SMALL_RTOL, QUANT_RTOL = 1e-5, 1e-3, 1e-2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+BF16_FLOPS = 989e12                # H100 SXM data sheet, dense bfloat16 on the tensor cores
 F32_FLOPS = 67e12                  # H100 SXM, float32 outside the tensor cores
 # 132 SMs × 64 INT32 lanes × 1.98 GHz boost (Hopper white paper; the same
 # clock gives the data sheet's 67 TFLOP/s float32 from 128 FP32 lanes).
@@ -1841,6 +1867,344 @@ def lm_checks(device, smi_line: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4t: the LM training path (repro_torch.optim, checkpoint,
+# launch.steps.make_train_step, launch.elastic).
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 4, 256, 2
+TRAIN_WARMUP, TRAIN_TIMED = 1, 3
+TRAIN_LR = 1e-4
+TRAIN_F32_LAYERS = 6               # one 5:1 pattern, float32 moments
+TRAIN_CKPT_LAYERS = 2              # the checkpoint round trip
+TRAIN_CP_RANK = 16
+# Card vs CPU, the smoke config, two steps of grad_accum 2 at float32
+# compute.  The losses within 1e-5 relative.  The params: at most 0.1% of
+# entries more than 1e-5 apart and none more than 4·lr, since Adam's first
+# steps are nearly sign(g)·lr and an entry whose gradient is as small as
+# the two sides' rounding differences (float32 sums in another order) may
+# move the other way (tests/test_torch_train.py holds the CPU to the JAX
+# package so).  8-bit moments: each card step starts from the CPU's state,
+# as the CPU tests start each step from the JAX package's.  Run on the
+# card with both sides carrying their own 8-bit state, one q that rounds
+# the other way at a tie in step 1 moves its block's absmax by one quantum
+# in step 2, and so the block's scale by up to 1/127 and many of its q
+# (PERF.md §6).  From one state: the int8 q buffers at most 1
+# apart, in at most 0.1% of all the state's entries (a rounding tie after
+# float32 sums taken in another order), and each scale within one quantum
+# (1/127) relative: a larger gap would move the block's largest q by more
+# than 1.
+TRAIN_SMOKE_LR = 1e-3
+TRAIN_LOSS_REL = 1e-5
+TRAIN_PARAM_ATOL, TRAIN_PARAM_SHARE = 1e-5, 1e-3
+TRAIN_Q8_SHARE, TRAIN_SCALE_RTOL = 1e-3, 1 / 127
+# compress_grad on the card against the CPU on one full-width gradient:
+# approx and err within 1e-4 of max|g| (float32 products over 10,240
+# terms summed in another order, and another QR), q within 1e-3 of its
+# largest entry up to the sign of each column.
+TRAIN_CP_TOL, TRAIN_CP_Q_TOL = 1e-4, 1e-3
+
+
+def train_tree_gap(got, want) -> tuple[float, float]:
+    """(max |Δ|, the share of entries more than TRAIN_PARAM_ATOL apart) of
+    two float trees."""
+    d = torch.cat([(a.float().cpu() - b.float().cpu()).abs().flatten()
+                   for a, b in zip(lm_nn.tree_leaves(got), lm_nn.tree_leaves(want), strict=True)])
+    return float(d.max()), float((d > TRAIN_PARAM_ATOL).float().mean())
+
+
+def train_card_vs_cpu(device) -> None:
+    """The smoke config, one set of weights, two steps of grad_accum 2 on
+    the card and on the CPU, with float32 moments (each side its own
+    state) and with 8-bit moments (each card step from the CPU's state)."""
+    cfg = dataclasses.replace(get_smoke_config(LM_ARCH), compute_dtype="float32")
+    lm = LM(cfg)
+    params, _ = lm.init(torch.Generator("cpu").manual_seed(0))
+    tokens = torch.from_numpy(SyntheticTokens(cfg.vocab, 32, TRAIN_BATCH, seed=0).batch(0))
+    ctx = MeshCtx(mesh=None)
+    for use_8bit in (False, True):
+        opt_cfg = AdamWConfig(lr=TRAIN_SMOKE_LR, use_8bit=use_8bit)
+        step = make_train_step(lm, ctx, opt_cfg, grad_accum=TRAIN_ACCUM)
+        p_cpu = lm_nn.tree_map(torch.clone, params)
+        o_cpu = adamw_init(p_cpu, opt_cfg)
+        l_cpu, l_card, q_diff, q_max, s_gap = [], [], 0, 0, 0.0
+        for k in range(2):
+            if use_8bit or k == 0:
+                p_card, o_card = lm_nn.tree_map(lambda a: a.to(device, copy=True), (p_cpu, o_cpu))
+            p_card, o_card, loss = step(p_card, o_card, {"tokens": tokens.to(device)})
+            l_card.append(float(loss))
+            p_cpu, o_cpu, loss = step(p_cpu, o_cpu, {"tokens": tokens})
+            l_cpu.append(float(loss))
+            if use_8bit:
+                n_q = 0
+                for kind in ("m", "v"):
+                    for a, b in zip(lm_nn.tree_leaves(o_card[kind]),
+                                    lm_nn.tree_leaves(o_cpu[kind]), strict=True):
+                        a = a.cpu()
+                        if a.dtype == torch.int8:
+                            d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+                            q_max = max(q_max, int(d.max()))
+                            q_diff += int((d > 0).sum())
+                            n_q += d.numel()
+                        else:
+                            s_gap = max(s_gap, float(((a - b).abs() / b.abs()).max()))
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu, strict=True))
+        p_max, p_share = train_tree_gap(p_card, p_cpu)
+        ok = (loss_gap <= TRAIN_LOSS_REL and p_share <= TRAIN_PARAM_SHARE
+              and p_max <= 4 * TRAIN_SMOKE_LR and int(o_card["step"]) == 2)
+        what = f"params max |Δ| {p_max:.3e}, share > {TRAIN_PARAM_ATOL}: {p_share:.2e}"
+        if use_8bit:
+            q_share = q_diff / (2 * n_q)
+            ok = ok and q_max <= 1 and q_share <= TRAIN_Q8_SHARE and s_gap <= TRAIN_SCALE_RTOL
+            what += (f"; q max |Δ| {q_max}, {q_diff} entries differ over both steps, share "
+                     f"{q_share:.2e} (≤ 1, ≤ {TRAIN_Q8_SHARE}), scales {s_gap:.2e} relative "
+                     f"(≤ {TRAIN_SCALE_RTOL:.3e})")
+        else:
+            m_max, _ = train_tree_gap(o_card["m"], o_cpu["m"])
+            what += f"; m max |Δ| {m_max:.3e}"
+        log(f"[4t] card vs CPU, {cfg.name} float32, {'8-bit' if use_8bit else 'float32'} "
+            f"moments, 2 steps of grad_accum {TRAIN_ACCUM}: losses card {l_card} cpu {l_cpu} "
+            f"(max {loss_gap:.2e} relative, ≤ {TRAIN_LOSS_REL}); {what} (≤ "
+            f"{TRAIN_PARAM_SHARE}, none > {4 * TRAIN_SMOKE_LR})")
+        if not ok:
+            fail(f"phase 4t: the smoke config's train steps on the card left the CPU's "
+                 f"({'8-bit' if use_8bit else 'float32'} moments)")
+
+
+def optimizer_bytes(n_params: int, use_8bit: bool) -> int:
+    """Bytes one AdamW pass must move: the float32 params read and written,
+    the gradients read, each moment read and written (int8 and a float32
+    scale per 256, or float32)."""
+    moment = (1 + 4 / 256) if use_8bit else 4
+    return int(n_params * (4 + 4 + 4 + 2 * 2 * moment))
+
+
+def profile_step(step, params, opt, batch) -> tuple[dict, torch.Tensor]:
+    """One train step under `torch.profiler`: the device's busy share of
+    the step's wall time, the top device kernels (self time) and aten ops
+    (with their children), the launch count, and the AdamW update's host
+    time and device span (a `record_function` range around it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    update = train_steps.adamw_update
+
+    def ranged(*args):
+        with record_function("adamw_update"):
+            return update(*args)
+    torch.cuda.synchronize()
+    train_steps.adamw_update = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, opt, loss = step(params, opt, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        train_steps.adamw_update = update
+    events = prof.key_averages()
+
+    def self_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    def total_us(e):
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+    # The range shows twice: a host event, and a device event spanning its
+    # kernels (not a kernel itself: left out of the busy time).
+    device = [e for e in events if e.device_type == DeviceType.CUDA and e.key != "adamw_update"]
+    ops = [e for e in events if e.device_type != DeviceType.CUDA and e.key.startswith("aten::")]
+    opt_range = [e for e in events if e.key == "adamw_update"]
+    busy_us = sum(self_us(e) for e in device)
+    return dict(
+        wall_ms=1e3 * wall, busy_ms=busy_us / 1e3, busy_share=busy_us / 1e6 / wall,
+        launches=sum(e.count for e in device),
+        top_kernels=[(e.key[:90], round(self_us(e) / 1e3, 3), e.count)
+                     for e in sorted(device, key=self_us, reverse=True)[:6]],
+        top_ops=[(e.key, round(total_us(e) / 1e3, 3), e.count)
+                 for e in sorted(ops, key=total_us, reverse=True)[:8]],
+        adamw_host_ms=sum(e.cpu_time_total for e in opt_range
+                          if e.device_type != DeviceType.CUDA) / 1e3,
+        adamw_span_ms=sum(self_us(e) for e in opt_range
+                          if e.device_type == DeviceType.CUDA) / 1e3), loss
+
+
+def train_run(cfg, opt_cfg, device, smi_line: str, tag: str, *, profiled: bool):
+    """Train `cfg` from `torch.Generator` seed 0 on the card on one
+    `SyntheticTokens` batch (seed 0): TRAIN_WARMUP steps, then TRAIN_TIMED
+    timed ones (and one under the profiler).  Prints ms per step, tokens/s,
+    the losses, the peak memory above what was resident, the FLOP bound of
+    the step and the bytes bound of its optimizer pass.  Returns (lm,
+    params, opt)."""
+    lm = LM(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    params, _ = lm.init(torch.Generator(device).manual_seed(0))
+    opt = adamw_init(params, opt_cfg)
+    n_params = lm_nn.param_count(params)
+    batch = {"tokens": torch.from_numpy(SyntheticTokens(
+        cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0).batch(0)).to(device)}
+    step = make_train_step(lm, MeshCtx(mesh=None), opt_cfg, grad_accum=TRAIN_ACCUM)
+    losses, step_s = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch)
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    prof = None
+    if profiled:
+        prof, loss = profile_step(step, params, opt, batch)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = 1e3 * sum(step_s) / len(step_s)
+    flops = roofline_model_flops(n_params, tokens) + 2.0 * n_params * tokens  # + remat forward
+    flop_ms = 1e3 * flops / BF16_FLOPS
+    opt_ms = 1e3 * optimizer_bytes(n_params, opt_cfg.use_8bit) / HBM_BYTES_PER_S
+    log(f"[4t] {tag}: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {n_params} parameters, {cfg.param_dtype} weights, {cfg.compute_dtype} "
+        f"compute, remat {cfg.remat}, {'8-bit' if opt_cfg.use_8bit else 'float32'} moments, "
+        f"lr {opt_cfg.lr}; batch {TRAIN_BATCH} × seq {TRAIN_SEQ}, grad_accum {TRAIN_ACCUM}")
+    log(f"[4t]   ms per step (mean of {TRAIN_TIMED} after {TRAIN_WARMUP} warm-up) {step_ms:.3f} "
+        f"(steps {[round(1e3 * x, 3) for x in step_s]}), {tokens / (step_ms / 1e3):.1f} trained "
+        f"tokens/s; losses {losses}; device memory peak {peak / 2**30:.3f} GiB, "
+        f"{(peak - resident) / 2**30:.3f} GiB above what was resident; bound: the FLOPs "
+        f"(6·N·T + 2·N·T remat = {flops:.4e}) over {BF16_FLOPS:.3e} bfloat16 FLOP/s "
+        f"{flop_ms:.3f} ms, the optimizer pass's bytes "
+        f"({optimizer_bytes(n_params, opt_cfg.use_8bit) / 1e9:.3f} GB) over 3.35 TB/s "
+        f"{opt_ms:.3f} ms; on {smi_line}")
+    if prof:
+        log(f"[4t]   profiled step: wall {prof['wall_ms']:.3f} ms, device busy "
+            f"{prof['busy_ms']:.3f} ms ({100 * prof['busy_share']:.1f}% of the profiled step, "
+            f"{100 * prof['busy_ms'] / step_ms:.1f}% of the unprofiled step's mean), "
+            f"{prof['launches']} device launches; the AdamW update: host "
+            f"{prof['adamw_host_ms']:.3f} ms, its kernels span {prof['adamw_span_ms']:.3f} ms "
+            f"on the device")
+        log(f"[4t]   top device kernels (name, self ms, calls) {prof['top_kernels']}")
+        log(f"[4t]   top aten ops (name, device ms with children, calls) {prof['top_ops']}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"phase 4t: {tag}: a loss is not finite or the last is not below the first")
+    return lm, params, opt
+
+
+def train_cp_compress(lm, params, device) -> None:
+    """compress_grad on the card and on the CPU on the first layer's MLP
+    up-projection gradient (2560 × 10240) at R = 16, one batch's."""
+    w = params["layers"][0][0]["mlp"]["wu"]
+    tracked = lm_nn.tree_map(lambda a: a.detach().requires_grad_(), params)
+    batch = {"tokens": torch.from_numpy(SyntheticTokens(
+        lm.cfg.vocab, TRAIN_SEQ, TRAIN_BATCH // TRAIN_ACCUM, seed=0).batch(0)).to(device)}
+    g, = torch.autograd.grad(lm.loss(tracked, MeshCtx(mesh=None), batch),
+                             [tracked["layers"][0][0]["mlp"]["wu"]])
+    del tracked
+    st_cpu = cp_compress_state({"wu": w.cpu()}, rank=TRAIN_CP_RANK)["wu"]
+    st_card = lm_nn.tree_map(lambda a: a.to(device), st_cpu)
+    got, got_st = compress_grad(g, st_card)
+    want, want_st = compress_grad(g.cpu(), st_cpu)
+    scale = float(g.abs().max())
+    err_a = float((got.cpu() - want).abs().max())
+    err_e = float((got_st["err"].cpu() - want_st["err"]).abs().max())
+    q_got, q_want = got_st["q"].cpu(), want_st["q"]
+    signs = torch.sign((q_got * q_want).sum(dim=0))
+    err_q = float((q_got * signs - q_want).abs().max())
+    ms = time_ms(lambda: compress_grad(g, st_card), 20)
+    log(f"[4t] compress_grad on {tuple(g.shape)} at R = {TRAIN_CP_RANK}: card vs CPU approx "
+        f"{err_a / scale:.2e}, err {err_e / scale:.2e} of max|g| (≤ {TRAIN_CP_TOL}), q up to "
+        f"column signs {err_q / float(q_want.abs().max()):.2e} of its largest entry (≤ "
+        f"{TRAIN_CP_Q_TOL}); {ms:.3f} ms per call on the card")
+    if max(err_a, err_e) > TRAIN_CP_TOL * scale or err_q > TRAIN_CP_Q_TOL * float(
+            q_want.abs().max()):
+        fail("phase 4t: compress_grad on the card left the CPU's")
+
+
+def train_checkpoint(device) -> None:
+    """Gemma3-4b's widths at TRAIN_CKPT_LAYERS layers, 8-bit moments: one
+    step, an async save of the state while the next step runs, then
+    `elastic_restore` into a fresh structure: bit for bit the snapshot, and
+    one step from it gives that next step's loss."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_CKPT_LAYERS)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, use_8bit=True)
+    lm = LM(cfg)
+    params, _ = lm.init(torch.Generator(device).manual_seed(0))
+    opt = adamw_init(params, opt_cfg)
+    batch = {"tokens": torch.from_numpy(SyntheticTokens(
+        cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0).batch(0)).to(device)}
+    step = make_train_step(lm, MeshCtx(mesh=None), opt_cfg, grad_accum=TRAIN_ACCUM)
+    params, opt, _ = step(params, opt, batch)
+    state = {"params": params, "opt": opt}
+    snapshot = lm_nn.tree_map(torch.clone, state)
+    n_bytes = sum(a.numel() * a.element_size() for a in lm_nn.tree_leaves(state))
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = AsyncCheckpointer(tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(1, state)
+        t_snap = time.perf_counter() - t0
+        params, opt, live_loss = step(params, opt, batch)  # while the thread writes
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t0 - t_snap
+        ck.wait()
+        t_save = time.perf_counter() - t0
+        del params, opt, state
+        had_group = dist.is_initialized()
+        t0 = time.perf_counter()
+        try:
+            mesh, r_params, r_opt, r_step = elastic_restore(lm, tmp, opt_cfg, device=device)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+        finally:
+            if not had_group and dist.is_initialized():
+                dist.destroy_process_group()
+    same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+        lm_nn.tree_leaves({"params": r_params, "opt": r_opt}), lm_nn.tree_leaves(snapshot),
+        strict=True))
+    _, _, r_loss = step(r_params, r_opt, batch)
+    log(f"[4t] checkpoint: {cfg.name} at {cfg.n_layers} layers, 8-bit moments, "
+        f"{n_bytes / 1e9:.3f} GB in {len(lm_nn.tree_leaves(snapshot))} arrays; async save: "
+        f"snapshot to the host {t_snap:.2f}s, one train step while it wrote {t_step:.2f}s, "
+        f"committed after {t_save:.2f}s; elastic_restore (mesh {mesh_axes(mesh)}, step "
+        f"{r_step}) {t_restore:.2f}s; restored equal to the snapshot bit for bit: {same}; the "
+        f"next step's loss live {float(live_loss)!r}, from the restored state "
+        f"{float(r_loss)!r}")
+    if not same or r_step != 1 or float(r_loss) != float(live_loss):
+        fail("phase 4t: the restored checkpoint is not the snapshot, or its next step's loss "
+             "is not the live run's")
+
+
+def train_checks(device, smi_line: str) -> None:
+    """Phase 4t; fatal on any failure.  None of the three kernels is on
+    this path: their counts must stay 0."""
+    mttkrp_kernel.launches = 0
+    mttkrp_fixed_kernel.launches = 0
+    gram_pinv.launches = 0
+    # 1. Card against CPU at the smoke size.
+    train_card_vs_cpu(device)
+    # 2. Full width, 8-bit moments, with a profiled step.
+    cfg = get_config(LM_ARCH)
+    train_run(cfg, AdamWConfig(lr=TRAIN_LR, use_8bit=True), device, smi_line,
+              "full width, 8-bit moments", profiled=True)
+    torch.cuda.empty_cache()
+    # 3. Float32 moments at full width, the depth cut to one pattern; its
+    # gradient for 5.
+    cfg6 = dataclasses.replace(cfg, n_layers=TRAIN_F32_LAYERS)
+    lm6, params6, _ = train_run(cfg6, AdamWConfig(lr=TRAIN_LR), device, smi_line,
+                                f"float32 moments, depth cut to {TRAIN_F32_LAYERS} layers",
+                                profiled=False)
+    # 5. CP compression on the card.
+    train_cp_compress(lm6, params6, device)
+    del lm6, params6
+    torch.cuda.empty_cache()
+    # 4. Checkpoint and resume.
+    train_checkpoint(device)
+    torch.cuda.empty_cache()
+    counts = (mttkrp_kernel.launches, mttkrp_fixed_kernel.launches, gram_pinv.launches)
+    log(f"[4t] kernel launches (float, fixed, Gram): {counts}")
+    if any(counts):
+        fail(f"phase 4t: the LM training path launched a kernel of the CP-ALS path: {counts}")
+
+
+# ---------------------------------------------------------------------------
 # Phase 4p: the Gram pseudo-inverse kernel (csrc/gram_pinv.cu).
 # ---------------------------------------------------------------------------
 
@@ -2585,6 +2949,11 @@ def main() -> int:
     t0 = time.perf_counter()
     lm_checks(device, smi.splitlines()[0])
     log(f"[4l] phase took {time.perf_counter() - t0:.1f}s on {smi.splitlines()[0]}")
+
+    # 4t. The LM training path: gemma3-4b trained at full width.
+    t0 = time.perf_counter()
+    train_checks(device, smi.splitlines()[0])
+    log(f"[4t] phase took {time.perf_counter() - t0:.1f}s on {smi.splitlines()[0]}")
     smi_after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,

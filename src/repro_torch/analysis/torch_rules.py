@@ -45,6 +45,8 @@ TORCH_TARGETS = (
     "src/repro_torch/obs",
     "src/repro_torch/models",
     "src/repro_torch/launch",
+    "src/repro_torch/optim",
+    "src/repro_torch/checkpoint",
 )
 
 

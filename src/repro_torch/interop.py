@@ -18,8 +18,9 @@ from .device import resolve_device
 from .models.nn import tree_map
 from .models.transformer import segment_layout
 
-__all__ = ["chunked_from_reference", "factors_from_reference", "lm_params_from_reference",
-           "padded_batch_from_reference", "qfactors_from_reference", "tensor_from_reference"]
+__all__ = ["chunked_from_reference", "cp_state_from_reference", "factors_from_reference",
+           "lm_params_from_reference", "opt_state_from_reference", "padded_batch_from_reference",
+           "qfactors_from_reference", "tensor_from_reference"]
 
 
 def tensor_from_reference(st) -> SparseTensor:
@@ -93,3 +94,25 @@ def lm_params_from_reference(params, cfg, device: str | torch.device | None = No
         for seg_p, (pat, reps) in zip(params["layers"], segment_layout(cfg.n_layers, cfg.pattern),
                                       strict=True)]
     return out
+
+
+def opt_state_from_reference(opt_state, cfg, device: str | torch.device | None = None) -> dict:
+    """The reference's AdamW state for an LM's params (`adamw_init` or
+    `adamw_update`'s) as the port's, on `device` (None → the CUDA card):
+    `m` and `v` unstacked layer by layer as `lm_params_from_reference`
+    unstacks the params (an 8-bit moment's `{"q", "s"}` too: its blocks lie
+    along the last axis, so a row of the stack is that layer's state), and
+    `step` a 0-d int32 tensor."""
+    device = resolve_device(device)
+    return {"m": lm_params_from_reference(opt_state["m"], cfg, device),
+            "v": lm_params_from_reference(opt_state["v"], cfg, device),
+            "step": torch.from_numpy(np.array(opt_state["step"], dtype=np.int32)).to(device)}
+
+
+def cp_state_from_reference(state, device: str | torch.device | None = None):
+    """The reference's `cp_compress_state` tree (its `{"err", "q"}` pairs,
+    None where a tensor is not compressed) as float32 tensors on `device`
+    (None → the CUDA card), in the same structure."""
+    device = resolve_device(device)
+    return tree_map(lambda a: None if a is None else torch.from_numpy(
+        np.array(a, dtype=np.float32)).to(device), state)

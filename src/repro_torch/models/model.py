@@ -3,8 +3,9 @@ and the LM.
 
 `ModelConfig` keeps every field and default of the reference's, so the ten
 configs of `repro_torch.configs` are its data unchanged; `cdtype` and
-`pdtype` are torch dtypes.  `LM` serves the dense family on one card: the
-forward only (`prefill`, `decode_step`, `loss`).  Parameters are a nested
+`pdtype` are torch dtypes.  `LM` serves and trains the dense family
+(`prefill`, `decode_step`, and `loss`, which autograd differentiates for
+`repro_torch.launch.steps.make_train_step`).  Parameters are a nested
 dict of tensors passed explicitly, as in the reference, so weights carried
 across from it (`repro_torch.interop.lm_params_from_reference`) drop in.
 The enc-dec, VLM and audio branches, MoE and the recurrent mixers raise
@@ -127,7 +128,8 @@ class LM(torch.nn.Module):
     # -- init ---------------------------------------------------------------
 
     def init(self, generator: torch.Generator):
-        """(params, specs), drawn from `generator` on its device."""
+        """(params, specs), drawn from `generator` on its device (`nn.SHAPES`:
+        meta tensors, nothing allocated)."""
         cfg = self.cfg
         p, s = {}, {}
         p["embed"], s["embed"] = nn.embed_init(generator, cfg.vocab, cfg.d_model)
@@ -165,7 +167,7 @@ class LM(torch.nn.Module):
         x = stack_apply(p["layers"], self.cfg, self.segs, ctx, x, positions=positions)
         return nn.rmsnorm(p["final_norm"], x, self.cfg.norm_eps)
 
-    # -- train (the forward only) ---------------------------------------------
+    # -- train --------------------------------------------------------------
 
     def loss(self, p, ctx: MeshCtx, batch):
         """Mean next-token cross-entropy over batch["tokens"] (B, S)."""

@@ -5,8 +5,10 @@ functions, init and apply.
 Each init returns (params, specs): the specs tree names the logical axes
 of each array, as the reference's does.  An init draws from the
 `torch.Generator` it is given, on that generator's device; the arrays it
-makes land there.  The draws are torch's, not `jax.random`'s: weights are
-carried across from the reference by `repro_torch.interop.lm_params_from_reference`.
+makes land there (`SHAPES` in a generator's place: meta tensors, the
+counterpart of `jax.eval_shape` over an init).  The draws are torch's, not
+`jax.random`'s: weights are carried across from the reference by
+`repro_torch.interop.lm_params_from_reference`.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import torch
 __all__ = [
     "Params", "dense_init", "embed_init", "rmsnorm_init",
     "linear", "rmsnorm", "layernorm", "apply_rope", "softcap",
-    "param_count", "tree_cast", "tree_map", "weak",
+    "param_count", "tree_cast", "tree_leaves", "tree_map", "tree_unflatten", "weak",
+    "SHAPES",
 ]
 
 Params = dict  # nested dict of tensors
@@ -33,6 +36,43 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves in JAX's order: dict keys sorted, lists in order, None
+    dropped (an empty subtree in JAX)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_unflatten(like, leaves):
+    """`leaves`, in `tree_leaves` order, in the structure of `like`."""
+    it = iter(leaves)
+
+    def rebuild(t):
+        if isinstance(t, dict):
+            out = {k: rebuild(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(rebuild(v) for v in t)
+        return None if t is None else next(it)
+    tree = rebuild(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has places")
+    return tree
+
+
+class _Shapes:
+    """Stands in for a `torch.Generator` in an init: every array lands on
+    the meta device, so the init gives the tree's shapes and dtypes and
+    allocates nothing."""
+    device = torch.device("meta")
+
+
+SHAPES = _Shapes()
+
+
 @functools.lru_cache(maxsize=None)
 def weak(value: float, dtype: torch.dtype) -> float:
     """A Python float as jnp applies it to an array of `dtype`: rounded to
@@ -42,18 +82,9 @@ def weak(value: float, dtype: torch.dtype) -> float:
     return torch.tensor(value, dtype=dtype).item()
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
-def _normal(generator: torch.Generator, shape, dtype) -> torch.Tensor:
+def _normal(generator: torch.Generator, shape, dtype=None) -> torch.Tensor:
+    if generator is SHAPES:
+        return torch.empty(shape, dtype=dtype, device=generator.device)
     return torch.randn(shape, generator=generator, device=generator.device, dtype=dtype)
 
 
@@ -124,7 +155,7 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 def param_count(params: Params) -> int:
-    return sum(a.numel() for a in _leaves(params))
+    return sum(a.numel() for a in tree_leaves(params))
 
 
 def tree_cast(params: Params, dtype) -> Params:

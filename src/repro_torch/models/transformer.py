@@ -6,13 +6,17 @@ blocks (gemma3-4b: the 6-pattern five times, then a remainder of four
 local layers).  The reference stacks each pattern slot's weights over the
 repeats and scans them; here a segment is a plain list of its layers in
 order, layer r·len(pattern) + j being repeat r of pattern slot j, and the
-stack is a Python loop.  `cfg.remat` and `cfg.unroll_stack` steer the
-reference's compiled scan and mean nothing here.
+stack is a Python loop.  With `cfg.remat` and autograd on, each repeat of
+the pattern runs under `torch.utils.checkpoint` (the reference wraps the
+scan body, one repeat, in `jax.checkpoint`): its activations are
+recomputed in the backward pass.  `cfg.unroll_stack` steers the
+reference's compiled scan and means nothing here.
 
 Blocks are pre-norm residual: x + Mixer(LN(x)); x + MLP(LN(x)).  This slice
-serves the dense family on one card: the attention mixer with a dense MLP
-or none.  The other mixers, the MoE MLP, cross-attention and the
-multi-card MLP raise NotImplementedError naming the slice that ports them.
+serves and trains the dense family on one card or on data-parallel ranks:
+the attention mixer with a dense MLP or none.  The other mixers, the MoE
+MLP, cross-attention and a model axis of more than one rank raise
+NotImplementedError naming the slice that ports them.
 """
 from __future__ import annotations
 
@@ -22,7 +26,9 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..launch.mesh import mesh_axes
 from . import attention as attn_mod
 from . import nn
 
@@ -37,7 +43,7 @@ LATER_SLICES = {
     "slstm": "the SSM and xLSTM slice",
     "moe": "the MoE slice",
     "cross_attn": "the enc-dec and VLM slice",
-    "multi-card": "the tensor-parallel serving slice",
+    "multi-card": "the tensor-parallel slice",
 }
 
 
@@ -56,16 +62,17 @@ class LayerSpec:
 
 @dataclasses.dataclass(frozen=True)
 class MeshCtx:
-    """The reference's sharding context.  With no mesh, or a mesh of one
-    rank, every constraint is a no-op; a mesh of more ranks raises (the
-    multi-card LM is a later slice)."""
+    """The reference's sharding context.  With no mesh, or a mesh whose
+    model axis is one rank, every constraint is a no-op: data-parallel
+    ranks each hold whole activations of their rows.  A model axis of more
+    ranks raises (tensor parallelism is a later slice)."""
     mesh: Any
     dp: tuple[str, ...] = ("data",)
     tp: str = "model"
     seq_sharded: bool = True
 
     def shard(self, x, *spec):
-        if self.mesh is None or self.mesh.size() == 1:
+        if self.mesh is None or mesh_axes(self.mesh).get(self.tp, 1) == 1:
             return x
         raise later("multi-card")
 
@@ -109,7 +116,7 @@ def _mlp_init(generator: torch.Generator, cfg):
     d, f = cfg.d_model, cfg.d_ff
 
     def normal(shape, scale):
-        return torch.randn(shape, generator=generator, device=generator.device).mul_(scale)
+        return nn._normal(generator, shape).mul_(scale)
 
     if cfg.mlp_act in ("gelu2", "relu2"):  # plain 2-matrix MLP (whisper/minitron)
         p = {"w1": normal((d, f), d ** -0.5), "w2": normal((f, d), f ** -0.5)}
@@ -245,10 +252,21 @@ def stack_init(generator: torch.Generator, cfg, pattern, n_layers: int):
     return params, specs, segs
 
 
+def _repeat_apply(layers, cfg, pat, ctx: MeshCtx, x, positions):
+    """One repeat of a pattern: its len(pat) layers in order."""
+    for layer_p, spec in zip(layers, pat, strict=True):
+        x = block_apply(layer_p, cfg, spec, ctx, x, positions=positions)
+    return x
+
+
 def stack_apply(params, cfg, segs, ctx: MeshCtx, x, *, positions):
+    remat = cfg.remat and torch.is_grad_enabled()
     for seg_p, (pat, reps) in zip(params, segs, strict=True):
-        for layer_p, spec in zip(seg_p, _layers(pat, reps), strict=True):
-            x = block_apply(layer_p, cfg, spec, ctx, x, positions=positions)
+        n = len(pat)
+        for r in range(reps):
+            args = (seg_p[r * n:(r + 1) * n], cfg, pat, ctx, x, positions)
+            x = (checkpoint(_repeat_apply, *args, use_reentrant=False, preserve_rng_state=False)
+                 if remat else _repeat_apply(*args))
     return x
 
 

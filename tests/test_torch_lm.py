@@ -476,10 +476,15 @@ def test_blocks_of_later_slices_raise(spec):
 
 
 def test_mesh_of_more_ranks_raises():
-    class TwoRanks:
-        def size(self):
-            return 2
+    """A model axis of more than one rank raises; data-parallel ranks (a
+    model axis of one) hold whole activations, so no constraint applies."""
+    class Mesh:
+        mesh_dim_names = ("data", "model")
+
+        def __init__(self, shape):
+            self.shape = shape
     x = torch.ones(2)
     assert MeshCtx(mesh=None).shard(x, "data") is x
+    assert MeshCtx(mesh=Mesh((2, 1))).resid(x) is x
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        MeshCtx(mesh=TwoRanks()).resid(x)
+        MeshCtx(mesh=Mesh((1, 2))).resid(x)
