@@ -181,28 +181,36 @@ Phases, each fatal on failure:
      4l. (after 4b) the LM serving path (`repro_torch.models`,
      `launch.steps.generate`), which reaches none of the three kernels (the
      reference computes it in plain jnp; checked: 0 launches): the example
-     `repro_torch.examples.serve_lm --arch gemma3-4b --batch 4` (smoke
-     config, prompt 24, gen 12); that smoke config through `generate` on the
-     card and on the CPU from one set of weights, at float32 (tokens equal,
-     each teacher-forced step's logits within 1e-4 of Σ|terms| of the final
-     product) and at bfloat16 (the first step's logits within 2^-5 of the
-     CPU's largest |logit|); gemma3-4b at full width (34 layers, d_model
-     2560, vocab 262,144, float32 weights from `torch.Generator` seed 0 on
-     the card, bfloat16 compute) through `generate` at batch 4, prompt 24
-     (`SyntheticTokens` seed 0), gen 12, twice (identical tokens in
-     [0, vocab)), printing ms per decode step (host clock around
-     `torch.cuda.synchronize`, mean over steps 4 onward) beside the step's
-     bytes bound (the float32 weights read once), generated tokens/s, peak
-     device memory and the parameter count; and the ring buffer at full
-     width: 6 layers (one 5:1 pattern) at float32 over a 1,040-token prompt,
-     past the 1,024 window, the teacher-forced decode's last logits within
-     1e-3 of the largest |logit| of `LM.prefill` over the same tokens;
+     `repro_torch.examples.serve_lm --arch <arch> --batch 4` (smoke
+     config, prompt 24, gen 12) for gemma3-4b and the MoE, SSM and hybrid
+     archs (qwen3-moe-30b-a3b, llama4-scout-17b-a16e, xlstm-350m,
+     jamba-1.5-large-398b); each of these five smoke configs through
+     `generate` on the card and on the CPU from one set of weights, at
+     float32 (tokens equal, each teacher-forced step's logits within 1e-4
+     of Σ|terms| of the final product) and at bfloat16 (the first step's
+     logits within 2^-5 of the CPU's largest |logit|); gemma3-4b at full
+     width (34 layers, d_model 2560, vocab 262,144, float32 weights from
+     `torch.Generator` seed 0 on the card, bfloat16 compute) through
+     `generate` at batch 4, prompt 24 (`SyntheticTokens` seed 0), gen 12,
+     twice (identical tokens in [0, vocab)), printing ms per decode step
+     (host clock around `torch.cuda.synchronize`, mean over steps 4
+     onward) beside the step's bytes bound (the weights it reads, once:
+     `read_bytes`), generated tokens/s, peak device memory, the parameter
+     count, and one step's host waits (torch's sync log), device launches
+     and busy time (`torch.profiler`); the ring buffer at full width: 6
+     layers (one 5:1 pattern) at float32 over a 1,040-token prompt, past
+     the 1,024 window, the teacher-forced decode's last logits within 1e-3
+     of the largest |logit| of `LM.prefill` over the same tokens; then the
+     same full-width run for the other families, one built and freed after
+     the other, at the depths of LM_FAMILIES (qwen3-moe-30b-a3b 24 of 48
+     layers, llama4-scout-17b-a16e 4 of 48, xlstm-350m whole,
+     jamba-1.5-large-398b 5 of 72 with bfloat16 weights);
      4t. (after 4l) the LM training path (`repro_torch.optim`, `checkpoint`,
      `launch.steps.make_train_step`, `launch.elastic`), which also reaches
-     none of the three kernels (checked: 0 launches): gemma3-4b's smoke
-     config, one set of weights, two steps of grad_accum 2 at float32
-     compute on the card and on the CPU, with float32 and with 8-bit moments
-     (tolerances at TRAIN_LOSS_REL below); gemma3-4b at full width (float32
+     none of the three kernels (checked: 0 launches): the five smoke
+     configs of 4l, one set of weights each, two steps of grad_accum 2 at
+     float32 compute on the card and on the CPU, with float32 and with
+     8-bit moments (tolerances at TRAIN_LOSS_REL below); gemma3-4b at full width (float32
      weights, bfloat16 compute, remat on) with 8-bit moments,
      AdamWConfig(lr=1e-4, use_8bit=True), on one `SyntheticTokens` batch
      (seed 0, batch 4, sequence 256, grad_accum 2): 1 warm-up step, 3 timed
@@ -216,7 +224,10 @@ Phases, each fatal on failure:
      on the card against the CPU; at 2 layers an `AsyncCheckpointer` save
      while the next step runs, then `elastic_restore` into meta structure:
      bit for bit the snapshot, and the next step's loss equal to the live
-     run's;
+     run's; then xlstm-350m whole with float32 moments and
+     qwen3-moe-30b-a3b cut to 4 layers with 8-bit moments, 1 warm-up and 3
+     timed steps each (ms per step, tokens/s, the FLOP bound over the
+     parameters a token uses, the losses, which must fall);
   6. print the `kernels` line, then, last, the device line.
 
 Tolerance (phases 3 and 4): the float kernel forms each nonzero's product
@@ -293,6 +304,7 @@ from repro_torch.launch.elastic import elastic_restore  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch.steps import generate, make_decode_step, make_train_step  # noqa: E402
 from repro_torch.models import LM, MeshCtx  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import nn as lm_nn  # noqa: E402
 from repro_torch.core.mttkrp import _alto_decode  # noqa: E402
 from repro_torch.engine.calibrate import MIN_OBSERVATIONS  # noqa: E402
@@ -1693,6 +1705,16 @@ LM_F32_REL = 1e-4                  # card vs CPU at float32, each logit, of Σ|t
 LM_BF16_REL = 2.0 ** -5
 LM_RING_LAYERS, LM_RING_PROMPT = 6, 1040   # one 5:1 pattern; past the 1,024 window
 LM_RING_REL = 1e-3                 # decode vs prefill at float32, of the largest |logit|
+# The MoE, SSM and hybrid families served at full width, each with the depth
+# it is cut to (None: whole) so that its weights fit the card beside the
+# residents: qwen3-moe-30b-a3b 24 of 48 layers (15.6 B float32 parameters,
+# 58 GiB), llama4-scout-17b-a16e 4 of 48 (one whole pattern: three
+# chunked-local layers and the NoPE global one; 10.9 B, 40.5 GiB),
+# xlstm-350m whole, jamba-1.5-large-398b 5 of 72 (Mamba+dense, Mamba+MoE,
+# Mamba+dense, Mamba+MoE, attention+dense: every kind of block; 24.0 B
+# bfloat16 parameters, 44.8 GiB).
+LM_FAMILIES = {"qwen3-moe-30b-a3b": 24, "llama4-scout-17b-a16e": 4, "xlstm-350m": None,
+               "jamba-1-5-large-398b": 5}
 
 
 def lm_decode_logits(lm, params, tokens) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1721,15 +1743,15 @@ def lm_decode_logits(lm, params, tokens) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(out), terms
 
 
-def lm_card_vs_cpu(device) -> None:
-    """The smoke config through `generate` on the card and the CPU, one set
-    of weights, at float32 and at bfloat16."""
-    cfg32 = dataclasses.replace(get_smoke_config(LM_ARCH), compute_dtype="float32")
+def lm_card_vs_cpu(device, arch: str = LM_ARCH) -> None:
+    """The arch's smoke config through `generate` on the card and the CPU,
+    one set of weights, at float32 and at bfloat16."""
+    cfg32 = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
     params_cpu, _ = LM(cfg32).init(torch.Generator("cpu").manual_seed(0))
     params_card = lm_nn.tree_map(lambda a: a.to(device), params_cpu)
     prompts = torch.from_numpy(SyntheticTokens(cfg32.vocab, LM_PROMPT, LM_BATCH).batch(0))
     ctx = MeshCtx(mesh=None)
-    for cfg in (cfg32, get_smoke_config(LM_ARCH)):
+    for cfg in (cfg32, get_smoke_config(arch)):
         lm = LM(cfg)
         toks_cpu = generate(lm, params_cpu, ctx, prompts, LM_GEN)
         toks_card = generate(lm, params_card, ctx, prompts.to(device), LM_GEN).cpu()
@@ -1756,9 +1778,62 @@ def lm_card_vs_cpu(device) -> None:
             fail(f"phase 4l: the {cfg.compute_dtype} smoke config on the card left the CPU's")
 
 
-def lm_full_width(device, smi_line: str) -> None:
-    """gemma3-4b at its published widths through `generate`, twice."""
-    cfg = get_config(LM_ARCH)
+def read_bytes(params, run) -> tuple[int, object]:
+    """The bytes of the weights `run()` reads, each once in its stored
+    dtype: every weight but the experts of an MoE layer that no token was
+    routed to (read from the routing `run` does).  Returns (them, run's
+    result)."""
+    seen, route = [], moe_mod._route
+
+    def record(*args):
+        gates, eids = route(*args)
+        seen.append(eids)
+        return gates, eids
+    moe_mod._route = record
+    try:
+        out = run()
+    finally:
+        moe_mod._route = route
+    total = sum(a.numel() * a.element_size() for a in lm_nn.tree_leaves(params))
+    moe_layers = [layer["moe"] for seg in params["layers"] for layer in seg if "moe" in layer]
+    for moe_p, eids in zip(moe_layers, seen, strict=True):  # one routing per MoE layer, in order
+        per_expert = sum(moe_p[k][0].numel() * moe_p[k].element_size() for k in ("wg", "wu", "wd"))
+        total -= (moe_p["wg"].shape[0] - len(torch.unique(eids))) * per_expert
+    return total, out
+
+
+def decode_costs(lm, params, prompts) -> dict:
+    """One decode step's host waits (torch's sync log), its weights' bytes
+    (`read_bytes`) and, under `torch.profiler`, its device launches and busy
+    time, at positions 1, 2 and 3 of a fresh float32 cache."""
+    ctx = MeshCtx(mesh=None)
+    cache = lm.init_cache(prompts.shape[0], max_len=8, dtype=torch.float32,
+                          device=prompts.device)
+    with torch.no_grad():
+        _, cache = lm.decode_step(params, ctx, prompts[:, :1], cache, 0)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                _, cache = lm.decode_step(params, ctx, prompts[:, 1:2], cache, 1)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        prof, _ = profile_call(lambda: lm.decode_step(params, ctx, prompts[:, 2:3], cache, 2))
+        nbytes, _ = read_bytes(params, lambda: lm.decode_step(params, ctx, prompts[:, 3:4],
+                                                              cache, 3))
+    return dict(host_waits=sum(SYNC_WARNING in str(w.message) for w in caught),
+                read_bytes=nbytes, **prof)
+
+
+def lm_full_width(device, smi_line: str, arch: str = LM_ARCH,
+                  n_layers: int | None = None) -> None:
+    """The arch at its published widths (its depth cut to `n_layers`, if
+    given) through `generate`, twice; then one decode step's launches and
+    host waits."""
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     lm = LM(cfg)
     ctx = MeshCtx(mesh=None)
     torch.cuda.synchronize()
@@ -1769,6 +1844,7 @@ def lm_full_width(device, smi_line: str) -> None:
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     n_params = lm_nn.param_count(params)
+    weight_bytes = sum(a.numel() * a.element_size() for a in lm_nn.tree_leaves(params))
     prompts = torch.from_numpy(SyntheticTokens(cfg.vocab, LM_PROMPT, LM_BATCH, seed=0).batch(0))
     prompts = prompts.to(device)
 
@@ -1792,24 +1868,32 @@ def lm_full_width(device, smi_line: str) -> None:
     toks2 = generate(lm, params, ctx, prompts, LM_GEN).cpu()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    costs = decode_costs(lm, params, prompts)
     step_ms = 1e3 * sum(step_s[LM_TIMED_FROM:]) / len(step_s[LM_TIMED_FROM:])
-    weight_bytes = 4 * n_params  # float32, each read once per step
-    bound_ms = 1e3 * weight_bytes / HBM_BYTES_PER_S
+    bound_ms = 1e3 * costs["read_bytes"] / HBM_BYTES_PER_S
     log(f"[4l] full width {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
-        f"{cfg.vocab}, {n_params} parameters ({weight_bytes / 2**30:.3f} GiB float32), "
+        f"{cfg.vocab}, {n_params} parameters ({weight_bytes / 2**30:.3f} GiB {cfg.param_dtype}), "
         f"init {t_init:.2f}s, compute {cfg.compute_dtype}")
     log(f"[4l]   generate batch {LM_BATCH} prompt {LM_PROMPT} gen {LM_GEN}: "
         f"{len(step_s)} decode steps, ms per step (mean of steps {LM_TIMED_FROM}+) "
         f"{step_ms:.3f} (steps {[round(1e3 * x, 3) for x in step_s]}), bytes bound "
-        f"{bound_ms:.3f} ms (the float32 weights read once); untimed run {wall:.3f}s, "
-        f"{LM_BATCH * LM_GEN / wall:.1f} generated tokens/s; device memory peak "
-        f"{peak / 2**30:.3f} GiB, of which {(peak - resident) / 2**30:.3f} GiB above what "
-        f"was resident before the phase; on {smi_line}")
+        f"{bound_ms:.3f} ms (the {costs['read_bytes'] / 1e9:.3f} GB of weights a step reads, "
+        f"each once: all but the experts no token was routed to); untimed run {wall:.3f}s, "
+        f"{LM_BATCH * LM_GEN / wall:.1f} generated "
+        f"tokens/s; device memory peak {peak / 2**30:.3f} GiB, of which "
+        f"{(peak - resident) / 2**30:.3f} GiB above what was resident before the run; on "
+        f"{smi_line}")
+    log(f"[4l]   one decode step: {costs['host_waits']} host waits, {costs['launches']} device "
+        f"launches, {costs['busy_ms']:.3f} ms busy of {costs['wall_ms']:.3f} ms profiled "
+        f"({100 * costs['busy_share']:.1f}%); top device kernels (name, self ms, calls) "
+        f"{costs['top_kernels']}; top aten ops (name, device ms with children, calls) "
+        f"{costs['top_ops']}")
     log(f"[4l]   tokens {toks2.tolist()}")
     if not (torch.equal(toks1, toks2) and toks2.shape == (LM_BATCH, LM_GEN)
             and toks2.dtype == torch.int32
             and bool(((toks2 >= 0) & (toks2 < cfg.vocab)).all())):
-        fail("phase 4l: the two full-width runs gave other tokens, or tokens outside the vocab")
+        fail(f"phase 4l: {cfg.name}: the two full-width runs gave other tokens, or tokens "
+             f"outside the vocab")
 
 
 def lm_ring(device) -> None:
@@ -1847,19 +1931,28 @@ def lm_checks(device, smi_line: str) -> None:
     mttkrp_kernel.launches = 0
     mttkrp_fixed_kernel.launches = 0
     gram_pinv.launches = 0
-    # 1. The example at its defaults (the smoke config), on the card.
-    rc, lines = run_example(serve_lm.main, ["--arch", LM_ARCH, "--batch", str(LM_BATCH)])
-    for line in lines:
-        log(f"[4l] serve_lm: {line}")
-    if rc != 0 or not lines or f"-> ({LM_BATCH}, {LM_GEN})" not in lines[0]:
-        fail(f"phase 4l: the serve_lm example exited {rc} or printed {lines[:1]}")
+    # 1. The example at its defaults (the smoke config), on the card, for
+    # gemma3-4b and each of the other families.
+    for arch in (LM_ARCH, *LM_FAMILIES):
+        rc, lines = run_example(serve_lm.main, ["--arch", arch, "--batch", str(LM_BATCH)])
+        for line in lines:
+            log(f"[4l] serve_lm: {line}")
+        if rc != 0 or not lines or f"-> ({LM_BATCH}, {LM_GEN})" not in lines[0]:
+            fail(f"phase 4l: the serve_lm example ({arch}) exited {rc} or printed {lines[:1]}")
     # 2. Card against CPU, 3. full width, 4. the ring at full width.
-    lm_card_vs_cpu(device)
+    for arch in (LM_ARCH, *LM_FAMILIES):
+        lm_card_vs_cpu(device, arch)
     torch.cuda.empty_cache()
     lm_full_width(device, smi_line)
     torch.cuda.empty_cache()
     lm_ring(device)
     torch.cuda.empty_cache()
+    # 5. The MoE, SSM and hybrid families at full width, one at a time.
+    for arch, n_layers in LM_FAMILIES.items():
+        t0 = time.perf_counter()
+        lm_full_width(device, smi_line, arch, n_layers)
+        torch.cuda.empty_cache()
+        log(f"[4l]   {arch} took {time.perf_counter() - t0:.1f}s")
     counts = (mttkrp_kernel.launches, mttkrp_fixed_kernel.launches, gram_pinv.launches)
     log(f"[4l] kernel launches (float, fixed, Gram): {counts}")
     if any(counts):
@@ -1877,6 +1970,11 @@ TRAIN_LR = 1e-4
 TRAIN_F32_LAYERS = 6               # one 5:1 pattern, float32 moments
 TRAIN_CKPT_LAYERS = 2              # the checkpoint round trip
 TRAIN_CP_RANK = 16
+# The other families trained at full width: (arch, depth (None: whole),
+# 8-bit moments).  xlstm-350m whole with float32 moments; qwen3-moe-30b-a3b
+# cut to 4 layers with 8-bit moments (its backward runs through the sorted
+# gather, the per-expert products and the ordered add back).
+TRAIN_FAMILIES = (("xlstm-350m", None, False), ("qwen3-moe-30b-a3b", 4, True))
 # Card vs CPU, the smoke config, two steps of grad_accum 2 at float32
 # compute.  The losses within 1e-5 relative.  The params: at most 0.1% of
 # entries more than 1e-5 apart and none more than 4·lr, since Adam's first
@@ -1912,11 +2010,11 @@ def train_tree_gap(got, want) -> tuple[float, float]:
     return float(d.max()), float((d > TRAIN_PARAM_ATOL).float().mean())
 
 
-def train_card_vs_cpu(device) -> None:
-    """The smoke config, one set of weights, two steps of grad_accum 2 on
-    the card and on the CPU, with float32 moments (each side its own
+def train_card_vs_cpu(device, arch: str = LM_ARCH) -> None:
+    """The arch's smoke config, one set of weights, two steps of grad_accum
+    2 on the card and on the CPU, with float32 moments (each side its own
     state) and with 8-bit moments (each card step from the CPU's state)."""
-    cfg = dataclasses.replace(get_smoke_config(LM_ARCH), compute_dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
     lm = LM(cfg)
     params, _ = lm.init(torch.Generator("cpu").manual_seed(0))
     tokens = torch.from_numpy(SyntheticTokens(cfg.vocab, 32, TRAIN_BATCH, seed=0).batch(0))
@@ -1970,6 +2068,17 @@ def train_card_vs_cpu(device) -> None:
                  f"({'8-bit' if use_8bit else 'float32'} moments)")
 
 
+def active_params(cfg, params) -> int:
+    """Parameters one token's forward uses: an MoE layer's experts count
+    top_k / n_experts of theirs (the routed share), all others whole."""
+    total = lm_nn.param_count(params)
+    if not cfg.n_experts:
+        return total
+    experts = sum(layer["moe"][k].numel() for seg in params["layers"] for layer in seg
+                  if "moe" in layer for k in ("wg", "wu", "wd"))
+    return int(total - experts * (1 - cfg.top_k / cfg.n_experts))
+
+
 def optimizer_bytes(n_params: int, use_8bit: bool) -> int:
     """Bytes one AdamW pass must move: the float32 params read and written,
     the gradients read, each moment read and written (int8 and a float32
@@ -1978,52 +2087,68 @@ def optimizer_bytes(n_params: int, use_8bit: bool) -> int:
     return int(n_params * (4 + 4 + 4 + 2 * 2 * moment))
 
 
-def profile_step(step, params, opt, batch) -> tuple[dict, torch.Tensor]:
-    """One train step under `torch.profiler`: the device's busy share of
-    the step's wall time, the top device kernels (self time) and aten ops
-    (with their children), the launch count, and the AdamW update's host
-    time and device span (a `record_function` range around it)."""
+def _self_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def _total_us(e) -> float:
+    return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+
+def profile_call(fn, ranges: tuple[str, ...] = ()) -> tuple[dict, object]:
+    """`fn()` under `torch.profiler`: the device's busy share of its wall
+    time, the top device kernels (self time) and aten ops (with their
+    children), the launch count, and each `record_function` range of
+    `ranges` opened inside `fn` (its host ms and its device span).
+    Returns (those, fn's result)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    # A range shows twice: a host event, and a device event spanning its
+    # kernels (not a kernel itself: left out of the busy time).
+    device = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in ranges]
+    ops = [e for e in events if e.device_type != DeviceType.CUDA and e.key.startswith("aten::")]
+    busy_us = sum(_self_us(e) for e in device)
+    stats = dict(
+        wall_ms=1e3 * wall, busy_ms=busy_us / 1e3, busy_share=busy_us / 1e6 / wall,
+        launches=sum(e.count for e in device),
+        top_kernels=[(e.key[:90], round(_self_us(e) / 1e3, 3), e.count)
+                     for e in sorted(device, key=_self_us, reverse=True)[:6]],
+        top_ops=[(e.key, round(_total_us(e) / 1e3, 3), e.count)
+                 for e in sorted(ops, key=_total_us, reverse=True)[:8]])
+    for name in ranges:
+        hits = [e for e in events if e.key == name]
+        stats[f"{name}_host_ms"] = sum(e.cpu_time_total for e in hits
+                                       if e.device_type != DeviceType.CUDA) / 1e3
+        stats[f"{name}_span_ms"] = sum(_self_us(e) for e in hits
+                                       if e.device_type == DeviceType.CUDA) / 1e3
+    return stats, out
+
+
+def profile_step(step, params, opt, batch) -> tuple[dict, torch.Tensor]:
+    """One train step under `profile_call`, with an `adamw_update` range
+    around the optimizer's update."""
+    from torch.profiler import record_function
     update = train_steps.adamw_update
 
     def ranged(*args):
         with record_function("adamw_update"):
             return update(*args)
-    torch.cuda.synchronize()
     train_steps.adamw_update = ranged
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            params, opt, loss = step(params, opt, batch)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        stats, (_, _, loss) = profile_call(lambda: step(params, opt, batch),
+                                           ranges=("adamw_update",))
     finally:
         train_steps.adamw_update = update
-    events = prof.key_averages()
-
-    def self_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    def total_us(e):
-        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-    # The range shows twice: a host event, and a device event spanning its
-    # kernels (not a kernel itself: left out of the busy time).
-    device = [e for e in events if e.device_type == DeviceType.CUDA and e.key != "adamw_update"]
-    ops = [e for e in events if e.device_type != DeviceType.CUDA and e.key.startswith("aten::")]
-    opt_range = [e for e in events if e.key == "adamw_update"]
-    busy_us = sum(self_us(e) for e in device)
-    return dict(
-        wall_ms=1e3 * wall, busy_ms=busy_us / 1e3, busy_share=busy_us / 1e6 / wall,
-        launches=sum(e.count for e in device),
-        top_kernels=[(e.key[:90], round(self_us(e) / 1e3, 3), e.count)
-                     for e in sorted(device, key=self_us, reverse=True)[:6]],
-        top_ops=[(e.key, round(total_us(e) / 1e3, 3), e.count)
-                 for e in sorted(ops, key=total_us, reverse=True)[:8]],
-        adamw_host_ms=sum(e.cpu_time_total for e in opt_range
-                          if e.device_type != DeviceType.CUDA) / 1e3,
-        adamw_span_ms=sum(self_us(e) for e in opt_range
-                          if e.device_type == DeviceType.CUDA) / 1e3), loss
+    stats["adamw_host_ms"] = stats.pop("adamw_update_host_ms")
+    stats["adamw_span_ms"] = stats.pop("adamw_update_span_ms")
+    return stats, loss
 
 
 def train_run(cfg, opt_cfg, device, smi_line: str, tag: str, *, profiled: bool):
@@ -2059,18 +2184,20 @@ def train_run(cfg, opt_cfg, device, smi_line: str, tag: str, *, profiled: bool):
     peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     step_ms = 1e3 * sum(step_s) / len(step_s)
-    flops = roofline_model_flops(n_params, tokens) + 2.0 * n_params * tokens  # + remat forward
+    n_active = active_params(cfg, params)
+    flops = roofline_model_flops(n_active, tokens) + 2.0 * n_active * tokens  # + remat forward
     flop_ms = 1e3 * flops / BF16_FLOPS
     opt_ms = 1e3 * optimizer_bytes(n_params, opt_cfg.use_8bit) / HBM_BYTES_PER_S
     log(f"[4t] {tag}: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
-        f"{cfg.vocab}, {n_params} parameters, {cfg.param_dtype} weights, {cfg.compute_dtype} "
+        f"{cfg.vocab}, {n_params} parameters ({n_active} active per token), "
+        f"{cfg.param_dtype} weights, {cfg.compute_dtype} "
         f"compute, remat {cfg.remat}, {'8-bit' if opt_cfg.use_8bit else 'float32'} moments, "
         f"lr {opt_cfg.lr}; batch {TRAIN_BATCH} × seq {TRAIN_SEQ}, grad_accum {TRAIN_ACCUM}")
     log(f"[4t]   ms per step (mean of {TRAIN_TIMED} after {TRAIN_WARMUP} warm-up) {step_ms:.3f} "
         f"(steps {[round(1e3 * x, 3) for x in step_s]}), {tokens / (step_ms / 1e3):.1f} trained "
         f"tokens/s; losses {losses}; device memory peak {peak / 2**30:.3f} GiB, "
         f"{(peak - resident) / 2**30:.3f} GiB above what was resident; bound: the FLOPs "
-        f"(6·N·T + 2·N·T remat = {flops:.4e}) over {BF16_FLOPS:.3e} bfloat16 FLOP/s "
+        f"(6·N·T + 2·N·T remat, N active = {flops:.4e}) over {BF16_FLOPS:.3e} bfloat16 FLOP/s "
         f"{flop_ms:.3f} ms, the optimizer pass's bytes "
         f"({optimizer_bytes(n_params, opt_cfg.use_8bit) / 1e9:.3f} GB) over 3.35 TB/s "
         f"{opt_ms:.3f} ms; on {smi_line}")
@@ -2178,8 +2305,10 @@ def train_checks(device, smi_line: str) -> None:
     mttkrp_kernel.launches = 0
     mttkrp_fixed_kernel.launches = 0
     gram_pinv.launches = 0
-    # 1. Card against CPU at the smoke size.
-    train_card_vs_cpu(device)
+    # 1. Card against CPU at the smoke size, gemma3-4b's and the other
+    # families'.
+    for arch in (LM_ARCH, *LM_FAMILIES):
+        train_card_vs_cpu(device, arch)
     # 2. Full width, 8-bit moments, with a profiled step.
     cfg = get_config(LM_ARCH)
     train_run(cfg, AdamWConfig(lr=TRAIN_LR, use_8bit=True), device, smi_line,
@@ -2198,6 +2327,18 @@ def train_checks(device, smi_line: str) -> None:
     # 4. Checkpoint and resume.
     train_checkpoint(device)
     torch.cuda.empty_cache()
+    # 6. The other families at full width.
+    for arch, n_layers, use_8bit in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        cfg_f = get_config(arch)
+        if n_layers is not None:
+            cfg_f = dataclasses.replace(cfg_f, n_layers=n_layers)
+        what = ("whole" if n_layers is None else f"depth cut to {n_layers} layers")
+        train_run(cfg_f, AdamWConfig(lr=TRAIN_LR, use_8bit=use_8bit), device, smi_line,
+                  f"full width, {what}, {'8-bit' if use_8bit else 'float32'} moments",
+                  profiled=False)
+        torch.cuda.empty_cache()
+        log(f"[4t]   {arch} took {time.perf_counter() - t0:.1f}s")
     counts = (mttkrp_kernel.launches, mttkrp_fixed_kernel.launches, gram_pinv.launches)
     log(f"[4t] kernel launches (float, fixed, Gram): {counts}")
     if any(counts):

@@ -42,20 +42,20 @@ class AttnConfig:
     kv_block: int = 1024
 
 
-def attn_init(generator: torch.Generator, cfg: AttnConfig):
+def attn_init(generator: torch.Generator, cfg: AttnConfig, dtype=torch.float32):
     qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     p, s = {}, {}
     p["wq"], s["wq"] = nn.dense_init(generator, cfg.d_model, qd, bias=cfg.bias,
-                                     axes=("embed", "heads"))
+                                     axes=("embed", "heads"), dtype=dtype)
     p["wk"], s["wk"] = nn.dense_init(generator, cfg.d_model, kvd, bias=cfg.bias,
-                                     axes=("embed", "heads"))
+                                     axes=("embed", "heads"), dtype=dtype)
     p["wv"], s["wv"] = nn.dense_init(generator, cfg.d_model, kvd, bias=cfg.bias,
-                                     axes=("embed", "heads"))
+                                     axes=("embed", "heads"), dtype=dtype)
     p["wo"], s["wo"] = nn.dense_init(generator, qd, cfg.d_model, bias=cfg.bias,
-                                     axes=("heads", "embed"))
+                                     axes=("heads", "embed"), dtype=dtype)
     if cfg.qk_norm:
-        p["qn"], s["qn"] = nn.rmsnorm_init(cfg.head_dim, generator.device)
-        p["kn"], s["kn"] = nn.rmsnorm_init(cfg.head_dim, generator.device)
+        p["qn"], s["qn"] = nn.rmsnorm_init(cfg.head_dim, generator.device, dtype)
+        p["kn"], s["kn"] = nn.rmsnorm_init(cfg.head_dim, generator.device, dtype)
     return p, s
 
 

@@ -3,13 +3,13 @@ and the LM.
 
 `ModelConfig` keeps every field and default of the reference's, so the ten
 configs of `repro_torch.configs` are its data unchanged; `cdtype` and
-`pdtype` are torch dtypes.  `LM` serves and trains the dense family
-(`prefill`, `decode_step`, and `loss`, which autograd differentiates for
+`pdtype` are torch dtypes.  `LM` serves and trains the decoder-only
+families, dense, MoE, SSM (xLSTM) and hybrid (Jamba) (`prefill`,
+`decode_step`, and `loss`, which autograd differentiates for
 `repro_torch.launch.steps.make_train_step`).  Parameters are a nested
 dict of tensors passed explicitly, as in the reference, so weights carried
 across from it (`repro_torch.interop.lm_params_from_reference`) drop in.
-The enc-dec, VLM and audio branches, MoE and the recurrent mixers raise
-until their slice.
+The enc-dec, VLM and audio branches raise until their slice.
 """
 from __future__ import annotations
 
@@ -19,17 +19,16 @@ import math
 import torch
 
 from . import nn
+from .moe import MoEConfig
 from .transformer import (LATER_SLICES, LayerSpec, MeshCtx, init_stack_cache, segment_layout,
                           stack_apply, stack_decode, stack_init)
 from ..device import resolve_device
 
 __all__ = ["ModelConfig", "LM", "LayerSpec"]
 
-#: The slice of the port that serves each family other than "dense".
+#: The families this slice serves, and the slice that serves each other one.
+SERVED = ("dense", "moe", "ssm", "hybrid")
 FAMILY_SLICES = {
-    "moe": LATER_SLICES["moe"],
-    "ssm": LATER_SLICES["mlstm"],
-    "hybrid": LATER_SLICES["mamba"],
     "audio": LATER_SLICES["cross_attn"],
     "vlm": LATER_SLICES["cross_attn"],
 }
@@ -94,6 +93,10 @@ class ModelConfig:
     attn_pin_layout: bool = False
     manual_sp: bool = False
 
+    def moe_cfg(self) -> MoEConfig:
+        return MoEConfig(self.d_model, self.d_ff, self.n_experts, self.top_k,
+                         self.n_shared_experts)
+
     @property
     def cdtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
@@ -106,7 +109,7 @@ class ModelConfig:
 def _refusal(cfg: ModelConfig) -> str | None:
     if cfg.family in FAMILY_SLICES:
         return f"the {cfg.family} family comes with {FAMILY_SLICES[cfg.family]}"
-    if cfg.family != "dense":
+    if cfg.family not in SERVED:
         return f"unknown family {cfg.family!r}"
     if cfg.encoder_decoder or cfg.n_image_tokens or cfg.audio_frontend:
         return f"enc-dec, image and audio inputs come with {LATER_SLICES['cross_attn']}"
@@ -114,7 +117,7 @@ def _refusal(cfg: ModelConfig) -> str | None:
 
 
 class LM(torch.nn.Module):
-    """The dense decoder-only LM; params passed explicitly everywhere.  Its
+    """The decoder-only LM; params passed explicitly everywhere.  Its
     `forward` is one decode step (`decode_step`)."""
 
     def __init__(self, cfg: ModelConfig):
@@ -129,18 +132,22 @@ class LM(torch.nn.Module):
 
     def init(self, generator: torch.Generator):
         """(params, specs), drawn from `generator` on its device (`nn.SHAPES`:
-        meta tensors, nothing allocated)."""
+        meta tensors, nothing allocated).  Each leaf is drawn in float32 and
+        cast to cfg.pdtype before the next is drawn, so a bfloat16 model
+        never has a float32 copy (the reference casts the whole float32
+        tree at the end)."""
         cfg = self.cfg
+        dt = cfg.pdtype
         p, s = {}, {}
-        p["embed"], s["embed"] = nn.embed_init(generator, cfg.vocab, cfg.d_model)
-        p["final_norm"], s["final_norm"] = nn.rmsnorm_init(cfg.d_model, generator.device)
+        p["embed"], s["embed"] = nn.embed_init(generator, cfg.vocab, cfg.d_model, dtype=dt)
+        p["final_norm"], s["final_norm"] = nn.rmsnorm_init(cfg.d_model, generator.device, dt)
         pattern = self.segs[0][0]
         p["layers"], s["layers"], _ = stack_init(generator, cfg, pattern, cfg.n_layers)
         if not cfg.tie_embeddings:
             p["unembed"], s["unembed"] = nn.dense_init(
                 generator, cfg.d_model, cfg.vocab, axes=("embed", "vocab"),
-                scale=cfg.d_model ** -0.5)
-        return nn.tree_cast(p, cfg.pdtype), s
+                scale=cfg.d_model ** -0.5, dtype=dt)
+        return p, s
 
     # -- shared pieces --------------------------------------------------------
 

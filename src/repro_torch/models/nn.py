@@ -8,7 +8,10 @@ of each array, as the reference's does.  An init draws from the
 makes land there (`SHAPES` in a generator's place: meta tensors, the
 counterpart of `jax.eval_shape` over an init).  The draws are torch's, not
 `jax.random`'s: weights are carried across from the reference by
-`repro_torch.interop.lm_params_from_reference`.
+`repro_torch.interop.lm_params_from_reference`.  An init's `dtype` is the
+params' type: each leaf is drawn in float32, scaled, and cast to it before
+the next is drawn (the reference draws the whole tree in float32 and casts
+it after), so a bfloat16 model never has a float32 copy.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ __all__ = [
     "Params", "dense_init", "embed_init", "rmsnorm_init",
     "linear", "rmsnorm", "layernorm", "apply_rope", "softcap",
     "param_count", "tree_cast", "tree_leaves", "tree_map", "tree_unflatten", "weak",
-    "SHAPES",
+    "SHAPES", "normal", "uniform", "silu", "gelu", "softplus", "log_sigmoid",
 ]
 
 Params = dict  # nested dict of tensors
@@ -82,17 +85,28 @@ def weak(value: float, dtype: torch.dtype) -> float:
     return torch.tensor(value, dtype=dtype).item()
 
 
-def _normal(generator: torch.Generator, shape, dtype=None) -> torch.Tensor:
+def normal(generator: torch.Generator, shape, scale: float = 1.0,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A standard normal draw in float32 times `scale`, cast to `dtype`."""
     if generator is SHAPES:
         return torch.empty(shape, dtype=dtype, device=generator.device)
-    return torch.randn(shape, generator=generator, device=generator.device, dtype=dtype)
+    w = torch.randn(shape, generator=generator, device=generator.device,
+                    dtype=torch.float32).mul_(scale)
+    return w.to(dtype)
+
+
+def uniform(generator: torch.Generator, shape) -> torch.Tensor:
+    """A float32 draw from [0, 1) (meta under `SHAPES`)."""
+    if generator is SHAPES:
+        return torch.empty(shape, dtype=torch.float32, device=generator.device)
+    return torch.rand(shape, generator=generator, device=generator.device, dtype=torch.float32)
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int, *, bias: bool = False,
                scale: float | None = None, axes=("in", "out"), dtype=torch.float32):
     """Returns (params, specs). Logical axes name the sharding intent."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = _normal(generator, (d_in, d_out), dtype).mul_(scale)
+    w = normal(generator, (d_in, d_out), scale, dtype)
     p, s = {"w": w}, {"w": axes}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype, device=generator.device)
@@ -101,7 +115,7 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int, *, bias: bool 
 
 
 def embed_init(generator: torch.Generator, vocab: int, d: int, *, dtype=torch.float32):
-    w = _normal(generator, (vocab, d), dtype).mul_(0.02)
+    w = normal(generator, (vocab, d), 0.02, dtype)
     return {"w": w}, {"w": ("vocab", "embed")}
 
 
@@ -152,6 +166,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
+
+
+# jax.nn.gelu (its default, the tanh approximation), silu, softplus
+# (jnp.logaddexp(x, 0)) and log_sigmoid (-softplus(-x)) op by op: a bfloat16
+# activation is the reference's bit for bit (F.gelu(approximate="tanh") and
+# F.silu round once, and differ from it in the last bit of about a third
+# of the bfloat16 entries).
+
+def gelu(v):
+    c0 = weak(0.044715, v.dtype)
+    c1 = weak(math.sqrt(2 / math.pi), v.dtype)
+    return v * (0.5 * (1.0 + torch.tanh(c1 * (v + c0 * (v * v * v)))))
+
+
+def silu(v):
+    return v * (1.0 / (1.0 + torch.exp(-v)))
+
+
+def softplus(v):
+    # torch.maximum splits the gradient at a tie: softplus'(0) = 1/2, as JAX's
+    return torch.maximum(v, v.new_zeros(())) + torch.log1p(torch.exp(-v.abs()))
+
+
+def log_sigmoid(v):
+    return -softplus(-v)
 
 
 def param_count(params: Params) -> int:

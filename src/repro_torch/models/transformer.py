@@ -12,16 +12,17 @@ scan body, one repeat, in `jax.checkpoint`): its activations are
 recomputed in the backward pass.  `cfg.unroll_stack` steers the
 reference's compiled scan and means nothing here.
 
-Blocks are pre-norm residual: x + Mixer(LN(x)); x + MLP(LN(x)).  This slice
-serves and trains the dense family on one card or on data-parallel ranks:
-the attention mixer with a dense MLP or none.  The other mixers, the MoE
-MLP, cross-attention and a model axis of more than one rank raise
-NotImplementedError naming the slice that ports them.
+Blocks are pre-norm residual: x + Mixer(LN(x)); x + MLP(LN(x)).  The
+mixers are attention, Mamba (`ssm`), mLSTM and sLSTM (`xlstm`); the MLP is
+dense, MoE (`moe`) or none.  This slice serves and trains the decoder-only
+families on one card or on data-parallel ranks.  Cross-attention (the
+enc-dec and VLM slice) and a model axis of more than one rank (the
+tensor-parallel slice) raise NotImplementedError naming the slice that
+ports them.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any
 
 import torch
@@ -30,7 +31,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..launch.mesh import mesh_axes
 from . import attention as attn_mod
-from . import nn
+from . import moe as moe_mod
+from . import nn, ssm, xlstm
 
 __all__ = ["LayerSpec", "MeshCtx", "block_init", "block_apply", "block_decode",
            "init_block_cache", "segment_layout", "stack_init", "stack_apply",
@@ -38,10 +40,6 @@ __all__ = ["LayerSpec", "MeshCtx", "block_init", "block_apply", "block_decode",
 
 #: The slice of the port that brings each part of the reference's stack.
 LATER_SLICES = {
-    "mamba": "the SSM and xLSTM slice",
-    "mlstm": "the SSM and xLSTM slice",
-    "slstm": "the SSM and xLSTM slice",
-    "moe": "the MoE slice",
     "cross_attn": "the enc-dec and VLM slice",
     "multi-card": "the tensor-parallel slice",
 }
@@ -81,11 +79,12 @@ class MeshCtx:
         return self.shard(x, self.dp, sp, None)
 
 
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
+
+
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer != "attn":
-        raise later(spec.mixer) if spec.mixer in LATER_SLICES else ValueError(spec.mixer)
-    if spec.mlp == "moe":
-        raise later("moe")
+    if spec.mixer not in MIXERS:
+        raise ValueError(spec.mixer)
     if spec.cross_attn:
         raise later("cross_attn")
 
@@ -112,11 +111,16 @@ def _cross_cfg(cfg) -> attn_mod.AttnConfig:
         _attn_cfg(cfg, LayerSpec(causal=False)), causal=False, rope=False)
 
 
+def _mamba_cfg(cfg) -> ssm.MambaConfig:
+    return ssm.MambaConfig(d_model=cfg.d_model, d_state=cfg.d_state,
+                           scan_chunk=cfg.mamba_scan_chunk)
+
+
 def _mlp_init(generator: torch.Generator, cfg):
     d, f = cfg.d_model, cfg.d_ff
 
     def normal(shape, scale):
-        return nn._normal(generator, shape).mul_(scale)
+        return nn.normal(generator, shape, scale, cfg.pdtype)
 
     if cfg.mlp_act in ("gelu2", "relu2"):  # plain 2-matrix MLP (whisper/minitron)
         p = {"w1": normal((d, f), d ** -0.5), "w2": normal((f, d), f ** -0.5)}
@@ -128,26 +132,10 @@ def _mlp_init(generator: torch.Generator, cfg):
     return p, s
 
 
-# jax.nn.gelu (its default, the tanh approximation) and jax.nn.silu written
-# op by op, each step rounded to v's dtype as jnp rounds it, so that a
-# bfloat16 activation is the reference's bit for bit (F.gelu(approximate=
-# "tanh") and F.silu round once, and differ from it in the last bit of
-# about a third of the bfloat16 entries).
-
-def _gelu(v):
-    c0 = nn.weak(0.044715, v.dtype)
-    c1 = nn.weak(math.sqrt(2 / math.pi), v.dtype)
-    return v * (0.5 * (1.0 + torch.tanh(c1 * (v + c0 * (v * v * v)))))
-
-
-def _silu(v):
-    return v * (1.0 / (1.0 + torch.exp(-v)))
-
-
 def _acts(cfg):
-    acts = {"gelu": _gelu, "gelu2": _gelu, "geglu": _gelu,
+    acts = {"gelu": nn.gelu, "gelu2": nn.gelu, "geglu": nn.gelu,
             "relu2": lambda v: torch.square(F.relu(v))}
-    return acts.get(cfg.mlp_act, _silu)
+    return acts.get(cfg.mlp_act, nn.silu)
 
 
 def _mlp_apply(p, cfg, ctx: MeshCtx, x):
@@ -169,13 +157,27 @@ def _mlp_manual_sp(p, cfg, ctx: MeshCtx, h):
 
 
 def block_init(generator: torch.Generator, cfg, spec: LayerSpec):
+    """One block's params, each leaf in cfg.pdtype as it is drawn."""
     _check_spec(spec)
+    dt = cfg.pdtype
     p, s = {}, {}
-    p["ln1"], s["ln1"] = nn.rmsnorm_init(cfg.d_model, generator.device)
-    p["attn"], s["attn"] = attn_mod.attn_init(generator, _attn_cfg(cfg, spec))
+    p["ln1"], s["ln1"] = nn.rmsnorm_init(cfg.d_model, generator.device, dt)
+    if spec.mixer == "attn":
+        p["attn"], s["attn"] = attn_mod.attn_init(generator, _attn_cfg(cfg, spec), dt)
+    elif spec.mixer == "mamba":
+        p["mamba"], s["mamba"] = ssm.mamba_init(generator, _mamba_cfg(cfg), dt)
+    elif spec.mixer == "mlstm":
+        p["mlstm"], s["mlstm"] = xlstm.mlstm_init(
+            generator, xlstm.MLSTMConfig(cfg.d_model, cfg.n_heads), dt)
+    else:
+        p["slstm"], s["slstm"] = xlstm.slstm_init(
+            generator, xlstm.SLSTMConfig(cfg.d_model, cfg.n_heads), dt)
     if spec.mlp != "none":
-        p["ln2"], s["ln2"] = nn.rmsnorm_init(cfg.d_model, generator.device)
-        p["mlp"], s["mlp"] = _mlp_init(generator, cfg)
+        p["ln2"], s["ln2"] = nn.rmsnorm_init(cfg.d_model, generator.device, dt)
+        if spec.mlp == "moe":
+            p["moe"], s["moe"] = moe_mod.moe_init(generator, cfg.moe_cfg(), dt)
+        else:
+            p["mlp"], s["mlp"] = _mlp_init(generator, cfg)
     return p, s
 
 
@@ -186,12 +188,27 @@ def block_init(generator: torch.Generator, cfg, spec: LayerSpec):
 def block_apply(p, cfg, spec: LayerSpec, ctx: MeshCtx, x, *, positions):
     _check_spec(spec)
     h = nn.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    h = ctx.shard(h, ctx.dp, None, None)  # gather seq for attention
-    out, _ = attn_mod.attention(p["attn"], _attn_cfg(cfg, spec), h, positions=positions)
-    x = ctx.resid(x + ctx.resid(out))
+    if spec.mixer == "attn":
+        h = ctx.shard(h, ctx.dp, None, None)  # gather seq for attention
+        out, _ = attn_mod.attention(p["attn"], _attn_cfg(cfg, spec), h, positions=positions)
+        out = ctx.resid(out)
+    elif spec.mixer == "mamba":
+        h = ctx.shard(h, ctx.dp, None, None)
+        out = ssm.mamba_apply(p["mamba"], _mamba_cfg(cfg), h, remat=cfg.remat)
+    elif spec.mixer == "mlstm":
+        out = xlstm.mlstm_apply(
+            p["mlstm"], xlstm.MLSTMConfig(cfg.d_model, cfg.n_heads, chunk=cfg.mlstm_chunk), h)
+    else:
+        out = xlstm.slstm_apply(p["slstm"], xlstm.SLSTMConfig(cfg.d_model, cfg.n_heads), h)
+    x = ctx.resid(x + out)
     if spec.mlp != "none":
         h = nn.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = ctx.resid(x + _mlp_apply(p["mlp"], cfg, ctx, h))
+        if spec.mlp == "moe":
+            out = moe_mod.moe_apply(p["moe"], cfg.moe_cfg(), h, mesh=ctx.mesh, dp_axes=ctx.dp,
+                                    model_axis=ctx.tp, seq_sharded=ctx.seq_sharded)
+        else:
+            out = _mlp_apply(p["mlp"], cfg, ctx, h)
+        x = ctx.resid(x + out)
     return x
 
 
@@ -201,21 +218,43 @@ def block_apply(p, cfg, spec: LayerSpec, ctx: MeshCtx, x, *, positions):
 
 def init_block_cache(cfg, spec: LayerSpec, batch: int, max_len: int,
                      dtype=torch.bfloat16, *, device: torch.device):
+    """The mixer's cache on `device`: attention's KV ring in `dtype`, the
+    recurrent mixers' float32 states (Mamba's conv window in `dtype`)."""
     _check_spec(spec)
-    return {"kv": attn_mod.init_kv_cache(_attn_cfg(cfg, spec), batch, max_len, dtype,
-                                         device=device)}
+    if spec.mixer == "attn":
+        return {"kv": attn_mod.init_kv_cache(_attn_cfg(cfg, spec), batch, max_len, dtype,
+                                             device=device)}
+    if spec.mixer == "mamba":
+        return {"mamba": ssm.init_mamba_cache(_mamba_cfg(cfg), batch, dtype, device=device)}
+    if spec.mixer == "mlstm":
+        return {"mlstm": xlstm.init_mlstm_cache(xlstm.MLSTMConfig(cfg.d_model, cfg.n_heads),
+                                                batch, device=device)}
+    return {"slstm": xlstm.init_slstm_cache(xlstm.SLSTMConfig(cfg.d_model, cfg.n_heads),
+                                            batch, device=device)}
 
 
 def block_decode(p, cfg, spec: LayerSpec, ctx: MeshCtx, x, cache, pos: int):
     """One token through one block; `cache` is updated in place and returned."""
     _check_spec(spec)
     h = nn.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    out, cache["kv"] = attn_mod.attn_decode(p["attn"], _attn_cfg(cfg, spec), h,
-                                            cache["kv"], pos)
+    if spec.mixer == "attn":
+        out, cache["kv"] = attn_mod.attn_decode(p["attn"], _attn_cfg(cfg, spec), h,
+                                                cache["kv"], pos)
+    elif spec.mixer == "mamba":
+        out, cache["mamba"] = ssm.mamba_decode(p["mamba"], _mamba_cfg(cfg), h, cache["mamba"])
+    elif spec.mixer == "mlstm":
+        out, cache["mlstm"] = xlstm.mlstm_decode(
+            p["mlstm"], xlstm.MLSTMConfig(cfg.d_model, cfg.n_heads), h, cache["mlstm"])
+    else:
+        out, cache["slstm"] = xlstm.slstm_decode(
+            p["slstm"], xlstm.SLSTMConfig(cfg.d_model, cfg.n_heads), h, cache["slstm"])
     x = x + out
     if spec.mlp != "none":
         h = nn.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = x + _mlp_apply(p["mlp"], cfg, ctx, h)
+        out = (moe_mod.moe_apply(p["moe"], cfg.moe_cfg(), h, mesh=ctx.mesh, dp_axes=ctx.dp,
+                                 model_axis=ctx.tp, seq_sharded=False)
+               if spec.mlp == "moe" else _mlp_apply(p["mlp"], cfg, ctx, h))
+        x = x + out
     return x, cache
 
 

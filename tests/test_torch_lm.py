@@ -61,8 +61,7 @@ from repro_torch.models import transformer as tr
 
 CPU = torch.device("cpu")
 DENSE = ["gemma3_4b", "qwen3_14b", "minitron_4b", "command_r_35b"]
-REFUSED = ["llama4_scout_17b_a16e", "qwen3_moe_30b_a3b", "xlstm_350m", "whisper_medium",
-           "internvl2_1b", "jamba_1_5_large_398b"]
+REFUSED = ["whisper_medium", "internvl2_1b"]
 NN_TOL = 1e-6
 ATTN_TOL = 1e-5
 LOGIT_REL = 1e-5       # of Σ|terms|, float32
@@ -170,7 +169,7 @@ def test_activations_round_as_the_reference():
     x = np.random.default_rng(1).standard_normal(4096).astype(np.float32) * 3
     for dtype, jdtype, tol in [(torch.bfloat16, jnp.bfloat16, 0.0), (torch.float32, jnp.float32,
                                                                        NN_TOL)]:
-        for mine, ref in [(tr._gelu, jax.nn.gelu), (tr._silu, jax.nn.silu)]:
+        for mine, ref in [(nn.gelu, jax.nn.gelu), (nn.silu, jax.nn.silu)]:
             got = _np(mine(_t(x).to(dtype)))
             want = np.asarray(ref(jnp.asarray(x).astype(jdtype)).astype(jnp.float32))
             np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
@@ -466,9 +465,7 @@ def test_lm_refuses_families_of_later_slices(arch):
         LM(cfg)
 
 
-@pytest.mark.parametrize("spec", [LayerSpec(mixer="mamba"), LayerSpec(mixer="mlstm"),
-                                  LayerSpec(mixer="slstm"), LayerSpec(mlp="moe"),
-                                  LayerSpec(cross_attn=True)])
+@pytest.mark.parametrize("spec", [LayerSpec(cross_attn=True)])
 def test_blocks_of_later_slices_raise(spec):
     cfg = configs.get_smoke_config("qwen3_14b")
     with pytest.raises(NotImplementedError, match="slice"):
