@@ -182,13 +182,17 @@ Phases, each fatal on failure:
      `launch.steps.generate`), which reaches none of the three kernels (the
      reference computes it in plain jnp; checked: 0 launches): the example
      `repro_torch.examples.serve_lm --arch <arch> --batch 4` (smoke
-     config, prompt 24, gen 12) for gemma3-4b and the MoE, SSM and hybrid
+     config, prompt 24, gen 12) for gemma3-4b, the MoE, SSM and hybrid
      archs (qwen3-moe-30b-a3b, llama4-scout-17b-a16e, xlstm-350m,
-     jamba-1.5-large-398b); each of these five smoke configs through
+     jamba-1.5-large-398b) and the enc-dec and VLM ones (whisper-medium,
+     internvl2-1b); each of these seven smoke configs through
      `generate` on the card and on the CPU from one set of weights, at
      float32 (tokens equal, each teacher-forced step's logits within 1e-4
      of Σ|terms| of the final product) and at bfloat16 (the first step's
-     logits within 2^-5 of the CPU's largest |logit|); gemma3-4b at full
+     logits within 2^-5 of the CPU's largest |logit|), whisper's decode
+     also against a cross cache of 12 seeded keys and values, and
+     whisper's and internvl's `prefill` over their frames or image embeds
+     (`SyntheticBatches`) within the same bounds; gemma3-4b at full
      width (34 layers, d_model 2560, vocab 262,144, float32 weights from
      `torch.Generator` seed 0 on the card, bfloat16 compute) through
      `generate` at batch 4, prompt 24 (`SyntheticTokens` seed 0), gen 12,
@@ -204,7 +208,12 @@ Phases, each fatal on failure:
      same full-width run for the other families, one built and freed after
      the other, at the depths of LM_FAMILIES (qwen3-moe-30b-a3b 24 of 48
      layers, llama4-scout-17b-a16e 4 of 48, xlstm-350m whole,
-     jamba-1.5-large-398b 5 of 72 with bfloat16 weights);
+     jamba-1.5-large-398b 5 of 72 with bfloat16 weights), then
+     whisper-medium and internvl2-1b whole, each first timing `prefill` at
+     batch 4 (whisper: 1,500 encoder frames and 187 decoder tokens;
+     internvl: 256 image tokens and a 24-token prompt), whisper decoding
+     against a cross cache of 1,500 seeded keys and values (its bytes in
+     the bound);
      4t. (after 4l) the LM training path (`repro_torch.optim`, `checkpoint`,
      `launch.steps.make_train_step`, `launch.elastic`), which also reaches
      none of the three kernels (checked: 0 launches): the five smoke
@@ -227,7 +236,12 @@ Phases, each fatal on failure:
      run's; then xlstm-350m whole with float32 moments and
      qwen3-moe-30b-a3b cut to 4 layers with 8-bit moments, 1 warm-up and 3
      timed steps each (ms per step, tokens/s, the FLOP bound over the
-     parameters a token uses, the losses, which must fall);
+     parameters a token uses, the losses, which must fall); then
+     whisper-medium (batch 4 × 1,500 frames, 187 decoder tokens) and
+     internvl2-1b (batch 4 × (256 image + 256 text tokens)) whole with
+     float32 moments, the same way, their FLOP bound each weight times the
+     rows it multiplies (`encdec_flops`); the card-against-CPU check runs
+     for all seven smoke configs on their `SyntheticBatches`;
   6. print the `kernels` line, then, last, the device line.
 
 Tolerance (phases 3 and 4): the float kernel forms each nonzero's product
@@ -297,7 +311,7 @@ from repro_torch.bench.serve_bench import member_gap, solve_kappa, synthetic_loa
 from repro_torch.batch.cpals import _init_batched  # noqa: E402
 from repro_torch.engine import PlanCache, TuningStore, default_plan_cache  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
-from repro_torch.data import SyntheticTokens  # noqa: E402
+from repro_torch.data import SyntheticBatches, SyntheticTokens  # noqa: E402
 from repro_torch.examples import decompose_tensor, quickstart, serve_lm  # noqa: E402
 from repro_torch.checkpoint import AsyncCheckpointer  # noqa: E402
 from repro_torch.launch.elastic import elastic_restore  # noqa: E402
@@ -1715,12 +1729,47 @@ LM_RING_REL = 1e-3                 # decode vs prefill at float32, of the larges
 # bfloat16 parameters, 44.8 GiB).
 LM_FAMILIES = {"qwen3-moe-30b-a3b": 24, "llama4-scout-17b-a16e": 4, "xlstm-350m": None,
                "jamba-1-5-large-398b": 5}
+# The enc-dec and VLM archs, served and trained whole at full width:
+# whisper-medium (24 encoder and 24 decoder layers, 811 M float32
+# parameters, 3.0 GiB) and internvl2-1b (24 layers, 495 M, 1.8 GiB).
+# Whisper's prefill runs over 1,500 encoder frames, the published 30 s
+# window after its convolution stem (arXiv:2212.04356), and SyntheticBatches'
+# 1,500 // 8 = 187 decoder tokens; its decode steps attend to a cross cache
+# of 1,500 seeded keys and values (the reference's `generate` leaves it
+# empty, and nothing of the reference writes the encoder's into it).
+# Internvl's prefill runs over its 256 image tokens and a 24-token prompt.
+LM_ENCDEC = ("whisper-medium", "internvl2-1b")
+LM_FRAMES = 1500
+LM_SMOKE_SEQ = 32                  # card vs CPU prefill: SyntheticBatches' seq_len
+LM_SMOKE_ENC_LEN = 12              # card vs CPU decode: the cross cache's length
+DECODE_UNREAD = ("enc_layers", "enc_norm", "img_proj")   # decode embeds tokens alone
 
 
-def lm_decode_logits(lm, params, tokens) -> tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced decode over tokens (B, S) on their device: every
-    step's logits (S, B, V), and Σ|terms| of each logit's final product
-    (|h| @ |W|, h the hidden state `_logits` is given)."""
+def arch_batch(cfg, seq_len: int, batch: int, device) -> dict:
+    """`SyntheticBatches` step 0, seed 0, as tensors on `device`: tokens
+    (B, S) for a decoder-only arch (`SyntheticTokens`' batch), frames (B, S,
+    D) and S // dec_ratio tokens for an enc-dec one, image embeds and S -
+    n_image_tokens tokens for a VLM."""
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in SyntheticBatches(cfg, seq_len, batch).batch(0).items()}
+
+
+def fill_cross(cache, device="cpu", seed: int = 0):
+    """Seeded normal draws (scale 0.5) on `device` into every layer's
+    cross-attention keys and values (`xk`/`xv`); drawn on the CPU, the
+    card's cache and the CPU's get the same.  Returns the cache."""
+    g = torch.Generator(device).manual_seed(seed)
+    for layer in (c for seg in cache for c in seg):
+        for key in ("xk", "xv"):
+            if key in layer:
+                a = layer[key]
+                a.copy_(torch.randn(a.shape, generator=g, device=device).mul_(0.5))
+    return cache
+
+
+@contextlib.contextmanager
+def hidden_states(lm):
+    """Record every hidden state `lm._logits` is given, as float32."""
     seen, logits_of = [], lm._logits
 
     def record(p, x):
@@ -1728,61 +1777,110 @@ def lm_decode_logits(lm, params, tokens) -> tuple[torch.Tensor, torch.Tensor]:
         return logits_of(p, x)
     lm._logits = record
     try:
+        yield seen
+    finally:
+        del lm._logits
+
+
+def abs_terms(lm, params, h) -> torch.Tensor:
+    """Σ|terms| of each logit's final product: |h| @ |W|."""
+    w = params["embed"]["w"].T if lm.cfg.tie_embeddings else params["unembed"]["w"]
+    return h.abs() @ w.float().abs()
+
+
+def lm_decode_logits(lm, params, tokens, enc_len: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced decode over tokens (B, S) on their device, against a
+    cross cache of `enc_len` seeded keys and values (`fill_cross`; enc-dec
+    only): every step's logits (S, B, V), and Σ|terms| of each logit's
+    final product (`abs_terms`)."""
+    with hidden_states(lm) as seen:
         b, s = tokens.shape
-        cache = lm.init_cache(b, max_len=s + 8, dtype=torch.float32, device=tokens.device)
+        cache = fill_cross(lm.init_cache(b, max_len=s + 8, dtype=torch.float32, enc_len=enc_len,
+                                         device=tokens.device))
         step = make_decode_step(lm, MeshCtx(mesh=None))
         out = []
         with torch.no_grad():
             for t in range(s):
                 logits, cache = step(params, tokens[:, t:t + 1], cache, t)
                 out.append(logits.float())
-    finally:
-        del lm._logits
-    w = params["embed"]["w"].T if lm.cfg.tie_embeddings else params["unembed"]["w"]
-    terms = torch.stack([h[:, 0].abs() @ w.float().abs() for h in seen])
+    terms = torch.stack([abs_terms(lm, params, h[:, 0]) for h in seen])
     return torch.stack(out), terms
+
+
+def lm_prefill_logits(lm, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+    """`LM.prefill` over the arch's batch: the last position's logits (B, V)
+    and their Σ|terms|."""
+    with hidden_states(lm) as seen, torch.no_grad():
+        logits = lm.prefill(params, MeshCtx(mesh=None), batch)[:, 0].float()
+    return logits, abs_terms(lm, params, seen[-1][:, 0])
+
+
+def hold_card(cfg, what: str, got, want, terms) -> bool:
+    """Print and judge one card-vs-CPU comparison of logits: float32 within
+    LM_F32_REL of Σ|terms| each, bfloat16 within LM_BF16_REL of the CPU's
+    largest |logit|."""
+    err = (got.cpu() - want).abs()
+    if cfg.compute_dtype == "float32":
+        ok = bool((err <= LM_F32_REL * terms).all())
+        log(f"[4l] card vs CPU, {cfg.name} float32, {what}: max |Δ| {float(err.max()):.3e}, "
+            f"max |Δ|/Σ|terms| {float((err / terms).max()):.3e} (tolerance {LM_F32_REL})")
+        return ok
+    scale = float(want.abs().max())
+    log(f"[4l] card vs CPU, {cfg.name} bfloat16, {what}: max |Δ| {float(err.max()):.3e}, "
+        f"{float(err.max()) / scale:.3e} of the largest |logit| (tolerance {LM_BF16_REL})")
+    return float(err.max()) <= LM_BF16_REL * scale
 
 
 def lm_card_vs_cpu(device, arch: str = LM_ARCH) -> None:
     """The arch's smoke config through `generate` on the card and the CPU,
-    one set of weights, at float32 and at bfloat16."""
+    one set of weights, at float32 and at bfloat16; an enc-dec or VLM arch
+    also through `prefill` over its frames or image embeds, and an enc-dec
+    one's decode also against a cross cache of LM_SMOKE_ENC_LEN seeded
+    keys and values."""
     cfg32 = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
     params_cpu, _ = LM(cfg32).init(torch.Generator("cpu").manual_seed(0))
     params_card = lm_nn.tree_map(lambda a: a.to(device), params_cpu)
     prompts = torch.from_numpy(SyntheticTokens(cfg32.vocab, LM_PROMPT, LM_BATCH).batch(0))
+    batch = arch_batch(cfg32, LM_SMOKE_SEQ, LM_BATCH, "cpu")
+    enc_lens = (0, LM_SMOKE_ENC_LEN) if cfg32.encoder_decoder else (0,)
     ctx = MeshCtx(mesh=None)
     for cfg in (cfg32, get_smoke_config(arch)):
         lm = LM(cfg)
         toks_cpu = generate(lm, params_cpu, ctx, prompts, LM_GEN)
         toks_card = generate(lm, params_card, ctx, prompts.to(device), LM_GEN).cpu()
+        same = torch.equal(toks_card, toks_cpu)
         if cfg.compute_dtype == "float32":
             # every step of the CPU run, teacher-forced on both sides
             seq = torch.cat([prompts, toks_cpu], dim=1)[:, :-1]
-            want, terms = lm_decode_logits(lm, params_cpu, seq)
-            got, _ = lm_decode_logits(lm, params_card, seq.to(device))
-            err = (got.cpu() - want).abs()
-            ok = bool((err <= LM_F32_REL * terms).all()) and torch.equal(toks_card, toks_cpu)
-            log(f"[4l] card vs CPU, {cfg.name} float32: tokens equal "
-                f"{torch.equal(toks_card, toks_cpu)}, {seq.shape[1]} steps' logits max |Δ| "
-                f"{float(err.max()):.3e}, max |Δ|/Σ|terms| {float((err / terms).max()):.3e} "
-                f"(tolerance {LM_F32_REL})")
         else:
-            want, _ = lm_decode_logits(lm, params_cpu, prompts[:, :1])
-            got, _ = lm_decode_logits(lm, params_card, prompts[:, :1].to(device))
-            err = float((got.cpu() - want).abs().max())
-            ok = err <= LM_BF16_REL * float(want.abs().max())
-            log(f"[4l] card vs CPU, {cfg.name} bfloat16: first step's logits max |Δ| {err:.3e}, "
-                f"{err / float(want.abs().max()):.3e} of the largest |logit| (tolerance "
-                f"{LM_BF16_REL}); tokens equal {torch.equal(toks_card, toks_cpu)} (not held)")
+            seq = prompts[:, :1]   # the first step
+        log(f"[4l] card vs CPU, {cfg.name} {cfg.compute_dtype}: generate's tokens equal {same}"
+            f"{'' if cfg.compute_dtype == 'float32' else ' (not held)'}")
+        ok = same or cfg.compute_dtype != "float32"
+        for enc_len in enc_lens:
+            want, terms = lm_decode_logits(lm, params_cpu, seq, enc_len)
+            got, _ = lm_decode_logits(lm, params_card, seq.to(device), enc_len)
+            what = f"{seq.shape[1]} decode steps' logits"
+            if cfg.encoder_decoder:
+                what += f", cross cache of {enc_len}"
+            ok &= hold_card(cfg, what, got, want, terms)
+        if cfg.encoder_decoder or cfg.n_image_tokens:
+            want, terms = lm_prefill_logits(lm, params_cpu, batch)
+            got, _ = lm_prefill_logits(lm, params_card,
+                                       {k: v.to(device) for k, v in batch.items()})
+            ok &= hold_card(cfg, "prefill over " + ", ".join(
+                f"{k} {tuple(v.shape)}" for k, v in batch.items()), got, want, terms)
         if not ok:
             fail(f"phase 4l: the {cfg.compute_dtype} smoke config on the card left the CPU's")
 
 
-def read_bytes(params, run) -> tuple[int, object]:
-    """The bytes of the weights `run()` reads, each once in its stored
-    dtype: every weight but the experts of an MoE layer that no token was
-    routed to (read from the routing `run` does).  Returns (them, run's
-    result)."""
+def read_bytes(params, run, rows: int) -> tuple[int, object]:
+    """The bytes of the weights `run()` (a decode step of `rows` tokens)
+    reads, each once in its stored dtype: every weight but the encoder's
+    and the image projection (DECODE_UNREAD: decode embeds tokens alone),
+    the rows of an untied embedding table that were not looked up, and the
+    experts of an MoE layer that no token was routed to (read from the
+    routing `run` does).  Returns (them, run's result)."""
     seen, route = [], moe_mod._route
 
     def record(*args):
@@ -1794,7 +1892,11 @@ def read_bytes(params, run) -> tuple[int, object]:
         out = run()
     finally:
         moe_mod._route = route
-    total = sum(a.numel() * a.element_size() for a in lm_nn.tree_leaves(params))
+    total = sum(a.numel() * a.element_size() for k, v in params.items()
+                if k not in DECODE_UNREAD for a in lm_nn.tree_leaves(v))
+    if "unembed" in params:   # untied: the lookup reads `rows` rows of the table
+        emb = params["embed"]["w"]
+        total -= (emb.shape[0] - rows) * emb[0].numel() * emb.element_size()
     moe_layers = [layer["moe"] for seg in params["layers"] for layer in seg if "moe" in layer]
     for moe_p, eids in zip(moe_layers, seen, strict=True):  # one routing per MoE layer, in order
         per_expert = sum(moe_p[k][0].numel() * moe_p[k].element_size() for k in ("wg", "wu", "wd"))
@@ -1804,11 +1906,14 @@ def read_bytes(params, run) -> tuple[int, object]:
 
 def decode_costs(lm, params, prompts) -> dict:
     """One decode step's host waits (torch's sync log), its weights' bytes
-    (`read_bytes`) and, under `torch.profiler`, its device launches and busy
+    (`read_bytes`), its cross cache's bytes (enc-dec: every key and value,
+    read once) and, under `torch.profiler`, its device launches and busy
     time, at positions 1, 2 and 3 of a fresh float32 cache."""
     ctx = MeshCtx(mesh=None)
     cache = lm.init_cache(prompts.shape[0], max_len=8, dtype=torch.float32,
                           device=prompts.device)
+    cross = sum(layer[k].numel() * layer[k].element_size() for seg in cache for layer in seg
+                for k in ("xk", "xv") if k in layer)
     with torch.no_grad():
         _, cache = lm.decode_step(params, ctx, prompts[:, :1], cache, 0)
         torch.cuda.synchronize()
@@ -1821,21 +1926,50 @@ def decode_costs(lm, params, prompts) -> dict:
                 torch.cuda.set_sync_debug_mode(0)
         prof, _ = profile_call(lambda: lm.decode_step(params, ctx, prompts[:, 2:3], cache, 2))
         nbytes, _ = read_bytes(params, lambda: lm.decode_step(params, ctx, prompts[:, 3:4],
-                                                              cache, 3))
+                                                              cache, 3), prompts.shape[0])
     return dict(host_waits=sum(SYNC_WARNING in str(w.message) for w in caught),
-                read_bytes=nbytes, **prof)
+                read_bytes=nbytes, cross_bytes=cross, **prof)
+
+
+def lm_prefill_time(lm, params, device) -> str:
+    """An enc-dec or VLM arch's `prefill` at full width: LM_BATCH rows of
+    LM_FRAMES frames and their 187 decoder tokens (whisper), or of the 256
+    image tokens and an LM_PROMPT-token prompt (internvl); one warm-up
+    call, then one timed (host clock around `torch.cuda.synchronize`).
+    Returns the line's text."""
+    cfg = lm.cfg
+    seq = LM_FRAMES if cfg.encoder_decoder else cfg.n_image_tokens + LM_PROMPT
+    batch = arch_batch(cfg, seq, LM_BATCH, device)
+    ctx = MeshCtx(mesh=None)
+    with torch.no_grad():
+        lm.prefill(params, ctx, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = lm.prefill(params, ctx, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    if logits.shape != (LM_BATCH, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        fail(f"phase 4l: {cfg.name}'s prefill gave {tuple(logits.shape)} or values not finite")
+    rows = sum(v.shape[0] * v.shape[1] for v in batch.values())
+    return ("prefill of " + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+            + f": {ms:.3f} ms ({rows / (ms / 1e3):.1f} input rows/s), logits finite")
 
 
 def lm_full_width(device, smi_line: str, arch: str = LM_ARCH,
                   n_layers: int | None = None) -> None:
     """The arch at its published widths (its depth cut to `n_layers`, if
     given) through `generate`, twice; then one decode step's launches and
-    host waits."""
+    host waits.  An enc-dec or VLM arch first runs `lm_prefill_time`, and
+    an enc-dec one decodes against a cross cache of LM_FRAMES seeded keys
+    and values (`fill_cross`)."""
     cfg = get_config(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     lm = LM(cfg)
     ctx = MeshCtx(mesh=None)
+    if cfg.encoder_decoder:
+        init_cache = lm.init_cache
+        lm.init_cache = lambda *a, **k: fill_cross(init_cache(*a, enc_len=LM_FRAMES, **k), device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
@@ -1847,6 +1981,8 @@ def lm_full_width(device, smi_line: str, arch: str = LM_ARCH,
     weight_bytes = sum(a.numel() * a.element_size() for a in lm_nn.tree_leaves(params))
     prompts = torch.from_numpy(SyntheticTokens(cfg.vocab, LM_PROMPT, LM_BATCH, seed=0).batch(0))
     prompts = prompts.to(device)
+    prefill = (lm_prefill_time(lm, params, device) if cfg.encoder_decoder or cfg.n_image_tokens
+               else None)
 
     step_s = []
     decode_step = lm.decode_step
@@ -1870,15 +2006,21 @@ def lm_full_width(device, smi_line: str, arch: str = LM_ARCH,
     peak = torch.cuda.max_memory_allocated()
     costs = decode_costs(lm, params, prompts)
     step_ms = 1e3 * sum(step_s[LM_TIMED_FROM:]) / len(step_s[LM_TIMED_FROM:])
-    bound_ms = 1e3 * costs["read_bytes"] / HBM_BYTES_PER_S
-    log(f"[4l] full width {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+    bound_ms = 1e3 * (costs["read_bytes"] + costs["cross_bytes"]) / HBM_BYTES_PER_S
+    enc = f" + {cfg.n_enc_layers} encoder" if cfg.encoder_decoder else ""
+    log(f"[4l] full width {cfg.name}: {cfg.n_layers}{enc} layers, d_model {cfg.d_model}, vocab "
         f"{cfg.vocab}, {n_params} parameters ({weight_bytes / 2**30:.3f} GiB {cfg.param_dtype}), "
         f"init {t_init:.2f}s, compute {cfg.compute_dtype}")
+    if prefill:
+        log(f"[4l]   {prefill}; on {smi_line}")
+    cross = (f" and the {costs['cross_bytes'] / 1e9:.3f} GB of its cross cache of {LM_FRAMES}"
+             if cfg.encoder_decoder else "")
     log(f"[4l]   generate batch {LM_BATCH} prompt {LM_PROMPT} gen {LM_GEN}: "
         f"{len(step_s)} decode steps, ms per step (mean of steps {LM_TIMED_FROM}+) "
         f"{step_ms:.3f} (steps {[round(1e3 * x, 3) for x in step_s]}), bytes bound "
         f"{bound_ms:.3f} ms (the {costs['read_bytes'] / 1e9:.3f} GB of weights a step reads, "
-        f"each once: all but the experts no token was routed to); untimed run {wall:.3f}s, "
+        f"each once: all but the encoder, the image projection, the embedding rows not looked "
+        f"up and the experts no token was routed to{cross}); untimed run {wall:.3f}s, "
         f"{LM_BATCH * LM_GEN / wall:.1f} generated "
         f"tokens/s; device memory peak {peak / 2**30:.3f} GiB, of which "
         f"{(peak - resident) / 2**30:.3f} GiB above what was resident before the run; on "
@@ -1933,22 +2075,23 @@ def lm_checks(device, smi_line: str) -> None:
     gram_pinv.launches = 0
     # 1. The example at its defaults (the smoke config), on the card, for
     # gemma3-4b and each of the other families.
-    for arch in (LM_ARCH, *LM_FAMILIES):
+    for arch in (LM_ARCH, *LM_FAMILIES, *LM_ENCDEC):
         rc, lines = run_example(serve_lm.main, ["--arch", arch, "--batch", str(LM_BATCH)])
         for line in lines:
             log(f"[4l] serve_lm: {line}")
         if rc != 0 or not lines or f"-> ({LM_BATCH}, {LM_GEN})" not in lines[0]:
             fail(f"phase 4l: the serve_lm example ({arch}) exited {rc} or printed {lines[:1]}")
     # 2. Card against CPU, 3. full width, 4. the ring at full width.
-    for arch in (LM_ARCH, *LM_FAMILIES):
+    for arch in (LM_ARCH, *LM_FAMILIES, *LM_ENCDEC):
         lm_card_vs_cpu(device, arch)
     torch.cuda.empty_cache()
     lm_full_width(device, smi_line)
     torch.cuda.empty_cache()
     lm_ring(device)
     torch.cuda.empty_cache()
-    # 5. The MoE, SSM and hybrid families at full width, one at a time.
-    for arch, n_layers in LM_FAMILIES.items():
+    # 5. The MoE, SSM and hybrid families at full width, then the enc-dec
+    # and VLM archs whole, one at a time.
+    for arch, n_layers in (*LM_FAMILIES.items(), *((a, None) for a in LM_ENCDEC)):
         t0 = time.perf_counter()
         lm_full_width(device, smi_line, arch, n_layers)
         torch.cuda.empty_cache()
@@ -1975,6 +2118,10 @@ TRAIN_CP_RANK = 16
 # cut to 4 layers with 8-bit moments (its backward runs through the sorted
 # gather, the per-expert products and the ordered add back).
 TRAIN_FAMILIES = (("xlstm-350m", None, False), ("qwen3-moe-30b-a3b", 4, True))
+# The enc-dec and VLM archs trained whole with float32 moments, each at its
+# own sequence (SyntheticBatches' seq_len): whisper-medium 1,500 frames and
+# 187 decoder tokens, internvl2-1b 256 image and 256 text tokens.
+TRAIN_ENCDEC = {"whisper-medium": LM_FRAMES, "internvl2-1b": 512}
 # Card vs CPU, the smoke config, two steps of grad_accum 2 at float32
 # compute.  The losses within 1e-5 relative.  The params: at most 0.1% of
 # entries more than 1e-5 apart and none more than 4·lr, since Adam's first
@@ -2017,7 +2164,7 @@ def train_card_vs_cpu(device, arch: str = LM_ARCH) -> None:
     cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
     lm = LM(cfg)
     params, _ = lm.init(torch.Generator("cpu").manual_seed(0))
-    tokens = torch.from_numpy(SyntheticTokens(cfg.vocab, 32, TRAIN_BATCH, seed=0).batch(0))
+    batch = arch_batch(cfg, 32, TRAIN_BATCH, "cpu")
     ctx = MeshCtx(mesh=None)
     for use_8bit in (False, True):
         opt_cfg = AdamWConfig(lr=TRAIN_SMOKE_LR, use_8bit=use_8bit)
@@ -2028,9 +2175,9 @@ def train_card_vs_cpu(device, arch: str = LM_ARCH) -> None:
         for k in range(2):
             if use_8bit or k == 0:
                 p_card, o_card = lm_nn.tree_map(lambda a: a.to(device, copy=True), (p_cpu, o_cpu))
-            p_card, o_card, loss = step(p_card, o_card, {"tokens": tokens.to(device)})
+            p_card, o_card, loss = step(p_card, o_card, {k: v.to(device) for k, v in batch.items()})
             l_card.append(float(loss))
-            p_cpu, o_cpu, loss = step(p_cpu, o_cpu, {"tokens": tokens})
+            p_cpu, o_cpu, loss = step(p_cpu, o_cpu, batch)
             l_cpu.append(float(loss))
             if use_8bit:
                 n_q = 0
@@ -2077,6 +2224,30 @@ def active_params(cfg, params) -> int:
     experts = sum(layer["moe"][k].numel() for seg in params["layers"] for layer in seg
                   if "moe" in layer for k in ("wg", "wu", "wd"))
     return int(total - experts * (1 - cfg.top_k / cfg.n_experts))
+
+
+def encdec_flops(cfg, params, batch) -> float:
+    """One forward's FLOPs of an enc-dec or VLM arch: 2 per weight per row
+    it multiplies.  Whisper: the encoder's weights over the frames, each
+    decoder layer's cross-attention key and value projections over the
+    frames too, the other decoder weights and the unembedding over the
+    decoder tokens (the untied embedding is a lookup).  Internvl: `img_proj`
+    over the image tokens, the layers over image and text, the tied
+    embedding (the unembedding) over the text tail, where the loss is."""
+    def n(tree):
+        return sum(a.numel() for a in lm_nn.tree_leaves(tree))
+    b, s_tok = batch["tokens"].shape
+    if cfg.encoder_decoder:
+        s_enc = batch["frames"].shape[1]
+        kv = sum(n(layer["xattn"][k]) for seg in params["layers"] for layer in seg
+                 for k in ("wk", "wv"))
+        dec = n(params["layers"]) + n(params["final_norm"]) + n(params["unembed"]) - kv
+        return 2.0 * b * ((n(params["enc_layers"]) + n(params["enc_norm"]) + kv) * s_enc
+                          + dec * s_tok)
+    s_img = batch["image_embeds"].shape[1]
+    return 2.0 * b * (n(params["img_proj"]) * s_img
+                      + (n(params["layers"]) + n(params["final_norm"])) * (s_img + s_tok)
+                      + n(params["embed"]) * s_tok)
 
 
 def optimizer_bytes(n_params: int, use_8bit: bool) -> int:
@@ -2151,13 +2322,15 @@ def profile_step(step, params, opt, batch) -> tuple[dict, torch.Tensor]:
     return stats, loss
 
 
-def train_run(cfg, opt_cfg, device, smi_line: str, tag: str, *, profiled: bool):
+def train_run(cfg, opt_cfg, device, smi_line: str, tag: str, *, profiled: bool,
+              seq: int = TRAIN_SEQ):
     """Train `cfg` from `torch.Generator` seed 0 on the card on one
-    `SyntheticTokens` batch (seed 0): TRAIN_WARMUP steps, then TRAIN_TIMED
-    timed ones (and one under the profiler).  Prints ms per step, tokens/s,
-    the losses, the peak memory above what was resident, the FLOP bound of
-    the step and the bytes bound of its optimizer pass.  Returns (lm,
-    params, opt)."""
+    `SyntheticBatches` batch of seq_len `seq` (seed 0; `SyntheticTokens`'
+    for a decoder-only arch): TRAIN_WARMUP steps, then TRAIN_TIMED timed
+    ones (and one under the profiler).  Prints ms per step, tokens/s, the
+    losses, the peak memory above what was resident, the FLOP bound of the
+    step and the bytes bound of its optimizer pass.  Returns (lm, params,
+    opt)."""
     lm = LM(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2165,8 +2338,7 @@ def train_run(cfg, opt_cfg, device, smi_line: str, tag: str, *, profiled: bool):
     params, _ = lm.init(torch.Generator(device).manual_seed(0))
     opt = adamw_init(params, opt_cfg)
     n_params = lm_nn.param_count(params)
-    batch = {"tokens": torch.from_numpy(SyntheticTokens(
-        cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0).batch(0)).to(device)}
+    batch = arch_batch(cfg, seq, TRAIN_BATCH, device)
     step = make_train_step(lm, MeshCtx(mesh=None), opt_cfg, grad_accum=TRAIN_ACCUM)
     losses, step_s = [], []
     for i in range(TRAIN_WARMUP + TRAIN_TIMED):
@@ -2182,22 +2354,31 @@ def train_run(cfg, opt_cfg, device, smi_line: str, tag: str, *, profiled: bool):
         prof, loss = profile_step(step, params, opt, batch)
         losses.append(float(loss))
     peak = torch.cuda.max_memory_allocated()
-    tokens = TRAIN_BATCH * TRAIN_SEQ
     step_ms = 1e3 * sum(step_s) / len(step_s)
     n_active = active_params(cfg, params)
-    flops = roofline_model_flops(n_active, tokens) + 2.0 * n_active * tokens  # + remat forward
+    rows = {k: v.shape[0] * v.shape[1] for k, v in batch.items()}
+    tokens = rows["tokens"]
+    if cfg.encoder_decoder or cfg.n_image_tokens:
+        # forward, backward (twice the forward) and the remat forward
+        flops = 4.0 * encdec_flops(cfg, params, batch)
+        flop_rule = "8 per weight per row it multiplies (encdec_flops)"
+    else:
+        flops = roofline_model_flops(n_active, tokens) + 2.0 * n_active * tokens  # + remat forward
+        flop_rule = "6·N·T + 2·N·T remat, N active"
     flop_ms = 1e3 * flops / BF16_FLOPS
     opt_ms = 1e3 * optimizer_bytes(n_params, opt_cfg.use_8bit) / HBM_BYTES_PER_S
     log(f"[4t] {tag}: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
         f"{cfg.vocab}, {n_params} parameters ({n_active} active per token), "
         f"{cfg.param_dtype} weights, {cfg.compute_dtype} "
         f"compute, remat {cfg.remat}, {'8-bit' if opt_cfg.use_8bit else 'float32'} moments, "
-        f"lr {opt_cfg.lr}; batch {TRAIN_BATCH} × seq {TRAIN_SEQ}, grad_accum {TRAIN_ACCUM}")
+        f"lr {opt_cfg.lr}; batch " + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+        + f", grad_accum {TRAIN_ACCUM}")
+    per_s = ", ".join(f"{r / (step_ms / 1e3):.1f} {k}" for k, r in rows.items())
     log(f"[4t]   ms per step (mean of {TRAIN_TIMED} after {TRAIN_WARMUP} warm-up) {step_ms:.3f} "
-        f"(steps {[round(1e3 * x, 3) for x in step_s]}), {tokens / (step_ms / 1e3):.1f} trained "
-        f"tokens/s; losses {losses}; device memory peak {peak / 2**30:.3f} GiB, "
+        f"(steps {[round(1e3 * x, 3) for x in step_s]}), trained rows/s: {per_s}; "
+        f"losses {losses}; device memory peak {peak / 2**30:.3f} GiB, "
         f"{(peak - resident) / 2**30:.3f} GiB above what was resident; bound: the FLOPs "
-        f"(6·N·T + 2·N·T remat, N active = {flops:.4e}) over {BF16_FLOPS:.3e} bfloat16 FLOP/s "
+        f"({flop_rule} = {flops:.4e}) over {BF16_FLOPS:.3e} bfloat16 FLOP/s "
         f"{flop_ms:.3f} ms, the optimizer pass's bytes "
         f"({optimizer_bytes(n_params, opt_cfg.use_8bit) / 1e9:.3f} GB) over 3.35 TB/s "
         f"{opt_ms:.3f} ms; on {smi_line}")
@@ -2307,7 +2488,7 @@ def train_checks(device, smi_line: str) -> None:
     gram_pinv.launches = 0
     # 1. Card against CPU at the smoke size, gemma3-4b's and the other
     # families'.
-    for arch in (LM_ARCH, *LM_FAMILIES):
+    for arch in (LM_ARCH, *LM_FAMILIES, *LM_ENCDEC):
         train_card_vs_cpu(device, arch)
     # 2. Full width, 8-bit moments, with a profiled step.
     cfg = get_config(LM_ARCH)
@@ -2337,6 +2518,13 @@ def train_checks(device, smi_line: str) -> None:
         train_run(cfg_f, AdamWConfig(lr=TRAIN_LR, use_8bit=use_8bit), device, smi_line,
                   f"full width, {what}, {'8-bit' if use_8bit else 'float32'} moments",
                   profiled=False)
+        torch.cuda.empty_cache()
+        log(f"[4t]   {arch} took {time.perf_counter() - t0:.1f}s")
+    # 7. The enc-dec and VLM archs whole at full width, float32 moments.
+    for arch, seq in TRAIN_ENCDEC.items():
+        t0 = time.perf_counter()
+        train_run(get_config(arch), AdamWConfig(lr=TRAIN_LR), device, smi_line,
+                  "full width, whole, float32 moments", profiled=False, seq=seq)
         torch.cuda.empty_cache()
         log(f"[4t]   {arch} took {time.perf_counter() - t0:.1f}s")
     counts = (mttkrp_kernel.launches, mttkrp_fixed_kernel.launches, gram_pinv.launches)
@@ -3086,12 +3274,12 @@ def main() -> int:
              f"the fixed one {mttkrp_fixed_kernel.launches} times (expected 0) and the Gram "
              f"kernel {gram_pinv.launches} times (expected some)")
 
-    # 4l. The LM serving path: gemma3-4b at full width.
+    # 4l. The LM serving path: every family at full width.
     t0 = time.perf_counter()
     lm_checks(device, smi.splitlines()[0])
     log(f"[4l] phase took {time.perf_counter() - t0:.1f}s on {smi.splitlines()[0]}")
 
-    # 4t. The LM training path: gemma3-4b trained at full width.
+    # 4t. The LM training path: every family trained at full width.
     t0 = time.perf_counter()
     train_checks(device, smi.splitlines()[0])
     log(f"[4t] phase took {time.perf_counter() - t0:.1f}s on {smi.splitlines()[0]}")

@@ -15,6 +15,7 @@ from .batch.bucketing import PaddedBatch
 from .core.chunking import ChunkedTensor
 from .core.sptensor import SparseTensor
 from .device import resolve_device
+from .models.model import ENC_SPEC
 from .models.nn import tree_map
 from .models.transformer import segment_layout
 
@@ -82,18 +83,23 @@ def lm_params_from_reference(params, cfg, device: str | torch.device | None = No
     on `device` (None → the CUDA card), same dtypes.  The reference stacks
     each segment's pattern slot over its repeats (`{"b0": stacked, ...}`);
     repeat r of slot j becomes the port's layer r·len(pattern) + j of that
-    segment."""
+    segment, for the decoder's `layers` and an enc-dec model's `enc_layers`
+    (one bidirectional block repeated `n_enc_layers` times).  The other
+    leaves (`enc_norm` and `img_proj` among them) pass through."""
     device = resolve_device(device)
 
     def to_tensor(a):
         return torch.from_numpy(np.array(a)).to(device)
-    out = {k: tree_map(to_tensor, v) for k, v in params.items() if k != "layers"}
-    out["layers"] = [
-        [tree_map(lambda a, r=r: to_tensor(np.asarray(a)[r]), seg_p[f"b{j}"])
-         for r in range(reps) for j in range(len(pat))]
-        for seg_p, (pat, reps) in zip(params["layers"], segment_layout(cfg.n_layers, cfg.pattern),
-                                      strict=True)]
-    return out
+
+    def unstack(stacked, layout):
+        return [[tree_map(lambda a, r=r: to_tensor(np.asarray(a)[r]), seg_p[f"b{j}"])
+                 for r in range(reps) for j in range(len(pat))]
+                for seg_p, (pat, reps) in zip(stacked, layout, strict=True)]
+    layouts = {"layers": segment_layout(cfg.n_layers, cfg.pattern)}
+    if cfg.encoder_decoder:
+        layouts["enc_layers"] = segment_layout(cfg.n_enc_layers, (ENC_SPEC,))
+    return {k: unstack(v, layouts[k]) if k in layouts else tree_map(to_tensor, v)
+            for k, v in params.items()}
 
 
 def opt_state_from_reference(opt_state, cfg, device: str | torch.device | None = None) -> dict:

@@ -3,13 +3,19 @@ and the LM.
 
 `ModelConfig` keeps every field and default of the reference's, so the ten
 configs of `repro_torch.configs` are its data unchanged; `cdtype` and
-`pdtype` are torch dtypes.  `LM` serves and trains the decoder-only
-families, dense, MoE, SSM (xLSTM) and hybrid (Jamba) (`prefill`,
-`decode_step`, and `loss`, which autograd differentiates for
-`repro_torch.launch.steps.make_train_step`).  Parameters are a nested
-dict of tensors passed explicitly, as in the reference, so weights carried
+`pdtype` are torch dtypes.  `LM` serves and trains every family: dense,
+MoE, SSM (xLSTM), hybrid (Jamba), enc-dec audio (whisper: an encoder stack
+over stub frame embeddings, cross-attending decoder blocks) and VLM
+(InternVL: `img_proj` of stub patch embeddings before the text) through
+`prefill`, `decode_step`, and `loss`, which autograd differentiates for
+`repro_torch.launch.steps.make_train_step`.  Parameters are a nested dict
+of tensors passed explicitly, as in the reference, so weights carried
 across from it (`repro_torch.interop.lm_params_from_reference`) drop in.
-The enc-dec, VLM and audio branches raise until their slice.
+
+As in the reference, decode embeds tokens alone: a VLM's image prefix
+never reaches it, and an enc-dec decoder cross-attends to its cache's
+`xk`/`xv`, which `init_cache` makes zeros and nothing fills with the
+encoder's keys and values.
 """
 from __future__ import annotations
 
@@ -20,18 +26,14 @@ import torch
 
 from . import nn
 from .moe import MoEConfig
-from .transformer import (LATER_SLICES, LayerSpec, MeshCtx, init_stack_cache, segment_layout,
-                          stack_apply, stack_decode, stack_init)
+from .transformer import (LayerSpec, MeshCtx, init_stack_cache, segment_layout, stack_apply,
+                          stack_decode, stack_init)
 from ..device import resolve_device
 
-__all__ = ["ModelConfig", "LM", "LayerSpec"]
+__all__ = ["ModelConfig", "LM", "LayerSpec", "ENC_SPEC"]
 
-#: The families this slice serves, and the slice that serves each other one.
-SERVED = ("dense", "moe", "ssm", "hybrid")
-FAMILY_SLICES = {
-    "audio": LATER_SLICES["cross_attn"],
-    "vlm": LATER_SLICES["cross_attn"],
-}
+#: The encoder's block: bidirectional global attention and a dense MLP.
+ENC_SPEC = LayerSpec(mixer="attn", attn_kind="global", mlp="dense", causal=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,27 +108,18 @@ class ModelConfig:
         return getattr(torch, self.param_dtype)
 
 
-def _refusal(cfg: ModelConfig) -> str | None:
-    if cfg.family in FAMILY_SLICES:
-        return f"the {cfg.family} family comes with {FAMILY_SLICES[cfg.family]}"
-    if cfg.family not in SERVED:
-        return f"unknown family {cfg.family!r}"
-    if cfg.encoder_decoder or cfg.n_image_tokens or cfg.audio_frontend:
-        return f"enc-dec, image and audio inputs come with {LATER_SLICES['cross_attn']}"
-    return None
-
-
 class LM(torch.nn.Module):
-    """The decoder-only LM; params passed explicitly everywhere.  Its
-    `forward` is one decode step (`decode_step`)."""
+    """The LM (decoder-only, enc-dec or VLM); params passed explicitly
+    everywhere.  Its `forward` is one decode step (`decode_step`)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        why = _refusal(cfg)
-        if why:
-            raise NotImplementedError(f"LM({cfg.name}): {why}")
         self.cfg = cfg
         self.segs = segment_layout(cfg.n_layers, cfg.pattern)
+        if cfg.encoder_decoder:
+            self.enc_segs = segment_layout(cfg.n_enc_layers, (ENC_SPEC,))
+            dec_pattern = tuple(dataclasses.replace(s, cross_attn=True) for s in cfg.pattern)
+            self.segs = segment_layout(cfg.n_layers, dec_pattern)
 
     # -- init ---------------------------------------------------------------
 
@@ -147,6 +140,13 @@ class LM(torch.nn.Module):
             p["unembed"], s["unembed"] = nn.dense_init(
                 generator, cfg.d_model, cfg.vocab, axes=("embed", "vocab"),
                 scale=cfg.d_model ** -0.5, dtype=dt)
+        if cfg.encoder_decoder:
+            p["enc_layers"], s["enc_layers"], _ = stack_init(
+                generator, cfg, self.enc_segs[0][0], cfg.n_enc_layers)
+            p["enc_norm"], s["enc_norm"] = nn.rmsnorm_init(cfg.d_model, generator.device, dt)
+        if cfg.n_image_tokens:
+            p["img_proj"], s["img_proj"] = nn.dense_init(
+                generator, cfg.d_model, cfg.d_model, axes=("embed", None), dtype=dt)
         return p, s
 
     # -- shared pieces --------------------------------------------------------
@@ -168,17 +168,45 @@ class LM(torch.nn.Module):
             logits = nn.softcap(logits.float(), cfg.final_softcap)
         return logits
 
-    def _backbone(self, p, ctx: MeshCtx, tokens):
-        x = ctx.resid(self._embed(p, tokens))
+    def _encode(self, p, ctx: MeshCtx, frames):
+        """The encoder stack over stub frame embeddings (B, S_enc, D)."""
+        cfg = self.cfg
+        x = frames.to(cfg.cdtype)
+        pos = torch.arange(x.shape[1], device=x.device)
+        x = stack_apply(p["enc_layers"], cfg, self.enc_segs, ctx, x, positions=pos)
+        return nn.rmsnorm(p["enc_norm"], x, cfg.norm_eps)
+
+    def _backbone_inputs(self, p, ctx: MeshCtx, batch):
+        """(x, enc_out): the decoder's input (B, S, D) and the encoder's
+        output, None but for an enc-dec model.  A VLM's x is `img_proj` of
+        batch["image_embeds"] followed by the token embeddings; an
+        audio-frontend model without an encoder takes batch["frames"] as x."""
+        cfg = self.cfg
+        if cfg.encoder_decoder:
+            return self._embed(p, batch["tokens"]), self._encode(p, ctx, batch["frames"])
+        if cfg.n_image_tokens:
+            img = nn.linear(p["img_proj"], batch["image_embeds"].to(cfg.cdtype))
+            return torch.cat([img, self._embed(p, batch["tokens"])], dim=1), None
+        if cfg.audio_frontend:
+            return batch["frames"].to(cfg.cdtype), None
+        return self._embed(p, batch["tokens"]), None
+
+    def _backbone(self, p, ctx: MeshCtx, batch):
+        x, enc_out = self._backbone_inputs(p, ctx, batch)
+        x = ctx.resid(x)
         positions = torch.arange(x.shape[1], device=x.device)
-        x = stack_apply(p["layers"], self.cfg, self.segs, ctx, x, positions=positions)
+        x = stack_apply(p["layers"], self.cfg, self.segs, ctx, x, positions=positions,
+                        enc_out=enc_out)
         return nn.rmsnorm(p["final_norm"], x, self.cfg.norm_eps)
 
     # -- train --------------------------------------------------------------
 
     def loss(self, p, ctx: MeshCtx, batch):
-        """Mean next-token cross-entropy over batch["tokens"] (B, S)."""
-        x = ctx.shard(self._backbone(p, ctx, batch["tokens"]), ctx.dp, None, None)
+        """Mean next-token cross-entropy over batch["tokens"] (B, S); a VLM's
+        over the text tail only."""
+        x = ctx.shard(self._backbone(p, ctx, batch), ctx.dp, None, None)
+        if self.cfg.n_image_tokens:
+            x = x[:, self.cfg.n_image_tokens:]
         logits = ctx.shard(self._logits(p, x), ctx.dp, None, ctx.tp)
         targets = batch["tokens"][:, 1:].long()
         logits = logits[:, :-1].float()
@@ -191,12 +219,13 @@ class LM(torch.nn.Module):
     def prefill(self, p, ctx: MeshCtx, batch):
         """Returns last-token logits (B, 1, V).  (Decode seeds its cache
         through decode_step, whose cache is an explicit input.)"""
-        return self._logits(p, self._backbone(p, ctx, batch["tokens"])[:, -1:])
+        return self._logits(p, self._backbone(p, ctx, batch)[:, -1:])
 
-    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, *,
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, *, enc_len: int = 0,
                    device: str | torch.device | None = None):
-        """Per segment, each layer's KV cache on `device` (None → the card)."""
-        return init_stack_cache(self.cfg, self.segs, batch, max_len, dtype,
+        """Per segment, each layer's cache on `device` (None → the card); a
+        cross-attending layer's `xk`/`xv` hold enc_len zero keys and values."""
+        return init_stack_cache(self.cfg, self.segs, batch, max_len, dtype, enc_len=enc_len,
                                 device=resolve_device(device))
 
     def decode_step(self, p, ctx: MeshCtx, token, cache, pos: int):

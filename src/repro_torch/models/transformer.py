@@ -14,11 +14,11 @@ reference's compiled scan and means nothing here.
 
 Blocks are pre-norm residual: x + Mixer(LN(x)); x + MLP(LN(x)).  The
 mixers are attention, Mamba (`ssm`), mLSTM and sLSTM (`xlstm`); the MLP is
-dense, MoE (`moe`) or none.  This slice serves and trains the decoder-only
-families on one card or on data-parallel ranks.  Cross-attention (the
-enc-dec and VLM slice) and a model axis of more than one rank (the
-tensor-parallel slice) raise NotImplementedError naming the slice that
-ports them.
+dense, MoE (`moe`) or none.  An enc-dec decoder block also cross-attends
+(`lnx`, `xattn`) to the encoder's output in prefill and training, and to
+its cache's `xk`/`xv` in decode.  The stack serves and trains every family
+on one card or on data-parallel ranks; a model axis of more than one rank
+(the tensor-parallel slice) raises NotImplementedError naming that slice.
 """
 from __future__ import annotations
 
@@ -40,7 +40,6 @@ __all__ = ["LayerSpec", "MeshCtx", "block_init", "block_apply", "block_decode",
 
 #: The slice of the port that brings each part of the reference's stack.
 LATER_SLICES = {
-    "cross_attn": "the enc-dec and VLM slice",
     "multi-card": "the tensor-parallel slice",
 }
 
@@ -85,8 +84,6 @@ MIXERS = ("attn", "mamba", "mlstm", "slstm")
 def _check_spec(spec: LayerSpec) -> None:
     if spec.mixer not in MIXERS:
         raise ValueError(spec.mixer)
-    if spec.cross_attn:
-        raise later("cross_attn")
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +169,9 @@ def block_init(generator: torch.Generator, cfg, spec: LayerSpec):
     else:
         p["slstm"], s["slstm"] = xlstm.slstm_init(
             generator, xlstm.SLSTMConfig(cfg.d_model, cfg.n_heads), dt)
+    if spec.cross_attn:
+        p["lnx"], s["lnx"] = nn.rmsnorm_init(cfg.d_model, generator.device, dt)
+        p["xattn"], s["xattn"] = attn_mod.attn_init(generator, _cross_cfg(cfg), dt)
     if spec.mlp != "none":
         p["ln2"], s["ln2"] = nn.rmsnorm_init(cfg.d_model, generator.device, dt)
         if spec.mlp == "moe":
@@ -185,7 +185,9 @@ def block_init(generator: torch.Generator, cfg, spec: LayerSpec):
 # Block apply (train / prefill)
 # ---------------------------------------------------------------------------
 
-def block_apply(p, cfg, spec: LayerSpec, ctx: MeshCtx, x, *, positions):
+def block_apply(p, cfg, spec: LayerSpec, ctx: MeshCtx, x, *, positions, enc_out=None):
+    """One block over x (B, S, D); a cross-attending block attends to
+    enc_out (B, S_enc, D) at key positions 0..S_enc-1."""
     _check_spec(spec)
     h = nn.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if spec.mixer == "attn":
@@ -201,6 +203,12 @@ def block_apply(p, cfg, spec: LayerSpec, ctx: MeshCtx, x, *, positions):
     else:
         out = xlstm.slstm_apply(p["slstm"], xlstm.SLSTMConfig(cfg.d_model, cfg.n_heads), h)
     x = ctx.resid(x + out)
+    if spec.cross_attn:
+        h = ctx.shard(nn.rmsnorm(p["lnx"], x, cfg.norm_eps), ctx.dp, None, None)
+        out, _ = attn_mod.attention(
+            p["xattn"], _cross_cfg(cfg), h, kv_x=enc_out, positions=positions,
+            kv_positions=torch.arange(enc_out.shape[1], device=enc_out.device))
+        x = ctx.resid(x + out)
     if spec.mlp != "none":
         h = nn.rmsnorm(p["ln2"], x, cfg.norm_eps)
         if spec.mlp == "moe":
@@ -217,20 +225,29 @@ def block_apply(p, cfg, spec: LayerSpec, ctx: MeshCtx, x, *, positions):
 # ---------------------------------------------------------------------------
 
 def init_block_cache(cfg, spec: LayerSpec, batch: int, max_len: int,
-                     dtype=torch.bfloat16, *, device: torch.device):
+                     dtype=torch.bfloat16, *, enc_len: int = 0, device: torch.device):
     """The mixer's cache on `device`: attention's KV ring in `dtype`, the
-    recurrent mixers' float32 states (Mamba's conv window in `dtype`)."""
+    recurrent mixers' float32 states (Mamba's conv window in `dtype`).  A
+    cross-attending block adds the encoder's keys and values `xk`/`xv`,
+    zeros of (batch, enc_len, n_kv_heads, head_dim) in `dtype`, as the
+    reference leaves them: nothing writes the encoder's into them."""
     _check_spec(spec)
     if spec.mixer == "attn":
-        return {"kv": attn_mod.init_kv_cache(_attn_cfg(cfg, spec), batch, max_len, dtype,
-                                             device=device)}
-    if spec.mixer == "mamba":
-        return {"mamba": ssm.init_mamba_cache(_mamba_cfg(cfg), batch, dtype, device=device)}
-    if spec.mixer == "mlstm":
-        return {"mlstm": xlstm.init_mlstm_cache(xlstm.MLSTMConfig(cfg.d_model, cfg.n_heads),
-                                                batch, device=device)}
-    return {"slstm": xlstm.init_slstm_cache(xlstm.SLSTMConfig(cfg.d_model, cfg.n_heads),
-                                            batch, device=device)}
+        c = {"kv": attn_mod.init_kv_cache(_attn_cfg(cfg, spec), batch, max_len, dtype,
+                                          device=device)}
+    elif spec.mixer == "mamba":
+        c = {"mamba": ssm.init_mamba_cache(_mamba_cfg(cfg), batch, dtype, device=device)}
+    elif spec.mixer == "mlstm":
+        c = {"mlstm": xlstm.init_mlstm_cache(xlstm.MLSTMConfig(cfg.d_model, cfg.n_heads),
+                                             batch, device=device)}
+    else:
+        c = {"slstm": xlstm.init_slstm_cache(xlstm.SLSTMConfig(cfg.d_model, cfg.n_heads),
+                                             batch, device=device)}
+    if spec.cross_attn:
+        shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+        c["xk"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["xv"] = torch.zeros(shape, dtype=dtype, device=device)
+    return c
 
 
 def block_decode(p, cfg, spec: LayerSpec, ctx: MeshCtx, x, cache, pos: int):
@@ -249,6 +266,10 @@ def block_decode(p, cfg, spec: LayerSpec, ctx: MeshCtx, x, cache, pos: int):
         out, cache["slstm"] = xlstm.slstm_decode(
             p["slstm"], xlstm.SLSTMConfig(cfg.d_model, cfg.n_heads), h, cache["slstm"])
     x = x + out
+    if spec.cross_attn:
+        h = nn.rmsnorm(p["lnx"], x, cfg.norm_eps)
+        x = x + attn_mod.attn_cross_decode(p["xattn"], _cross_cfg(cfg), h,
+                                           cache["xk"].to(x.dtype), cache["xv"].to(x.dtype))
     if spec.mlp != "none":
         h = nn.rmsnorm(p["ln2"], x, cfg.norm_eps)
         out = (moe_mod.moe_apply(p["moe"], cfg.moe_cfg(), h, mesh=ctx.mesh, dp_axes=ctx.dp,
@@ -291,27 +312,30 @@ def stack_init(generator: torch.Generator, cfg, pattern, n_layers: int):
     return params, specs, segs
 
 
-def _repeat_apply(layers, cfg, pat, ctx: MeshCtx, x, positions):
+def _repeat_apply(layers, cfg, pat, ctx: MeshCtx, x, positions, enc_out):
     """One repeat of a pattern: its len(pat) layers in order."""
     for layer_p, spec in zip(layers, pat, strict=True):
-        x = block_apply(layer_p, cfg, spec, ctx, x, positions=positions)
+        x = block_apply(layer_p, cfg, spec, ctx, x, positions=positions, enc_out=enc_out)
     return x
 
 
-def stack_apply(params, cfg, segs, ctx: MeshCtx, x, *, positions):
+def stack_apply(params, cfg, segs, ctx: MeshCtx, x, *, positions, enc_out=None):
+    """x through every segment; cross-attending blocks attend to enc_out,
+    an argument of each checkpointed repeat, so its gradient reaches the
+    encoder."""
     remat = cfg.remat and torch.is_grad_enabled()
     for seg_p, (pat, reps) in zip(params, segs, strict=True):
         n = len(pat)
         for r in range(reps):
-            args = (seg_p[r * n:(r + 1) * n], cfg, pat, ctx, x, positions)
+            args = (seg_p[r * n:(r + 1) * n], cfg, pat, ctx, x, positions, enc_out)
             x = (checkpoint(_repeat_apply, *args, use_reentrant=False, preserve_rng_state=False)
                  if remat else _repeat_apply(*args))
     return x
 
 
 def init_stack_cache(cfg, segs, batch: int, max_len: int, dtype=torch.bfloat16, *,
-                     device: torch.device):
-    return [[init_block_cache(cfg, spec, batch, max_len, dtype, device=device)
+                     enc_len: int = 0, device: torch.device):
+    return [[init_block_cache(cfg, spec, batch, max_len, dtype, enc_len=enc_len, device=device)
              for spec in _layers(pat, reps)] for pat, reps in segs]
 
 

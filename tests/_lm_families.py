@@ -1,10 +1,16 @@
-"""The cases of tests/test_torch_lm_moe.py and test_torch_lm_ssm.py: the
-port's MoE, SSM and hybrid LM families (qwen3-moe-30b-a3b,
-llama4-scout-17b-a16e; xlstm-350m, jamba-1.5-large-398b) against the JAX
+"""The cases of tests/test_torch_lm_moe.py, test_torch_lm_ssm.py and
+test_torch_lm_encdec.py: the port's MoE, SSM, hybrid, enc-dec and VLM LM
+families (qwen3-moe-30b-a3b, llama4-scout-17b-a16e; xlstm-350m,
+jamba-1.5-large-398b; whisper-medium, internvl2-1b) against the JAX
 package's on the CPU, at their smoke configs, both on the same seeded
-inputs, the weights carried across by `interop.lm_params_from_reference`.
-Each file imports the cases it runs and gives them its archs through an
-`arch` fixture (two files, so that `--dist loadfile` runs them apart).
+inputs (`_batch`: tokens, and `SyntheticBatches`' frames or image embeds
+for the enc-dec and VLM archs), the weights carried across by
+`interop.lm_params_from_reference`.  Each file imports the cases it runs
+and gives them its archs through an `arch` fixture (three files, so that
+`--dist loadfile` runs them apart).  Decode runs against a cache whose
+cross-attention keys and values (enc-dec only) are seeded draws put into
+both packages' caches alike (`_fill_cross`): the reference's `init_cache`
+leaves them zeros, which would hide the cross-attention.
 The reference runs on tests/conftest.py's trivial (1, 1) mesh (its MoE
 needs one), compiled with `jax.jit`, and each arch's reference params are
 drawn once per module.
@@ -25,7 +31,7 @@ first step is nearly sign(g)·lr, tests/test_torch_train.py).
 
 It mirrors the seed tests these families run on every PR:
 tests/test_arch_smoke.py's forward loss, train step and decode step for
-the four archs, and test_system.py's generation end to end.
+the six archs, and test_system.py's generation end to end.
 """
 import dataclasses
 import functools
@@ -64,6 +70,9 @@ LOSS_REL = {"float32": 1e-5, "bfloat16": 1e-2}
 PARAM_ATOL, PARAM_SHARE = 1e-5, 1e-3
 LR = 1e-3
 CTX = MeshCtx(mesh=None)
+ENC_LEN = 12           # the decode tests' cross cache: encoder keys and values
+FAMILIES = {"qwen3_moe_30b_a3b": "moe", "llama4_scout_17b_a16e": "moe", "xlstm_350m": "ssm",
+            "jamba_1_5_large_398b": "hybrid", "whisper_medium": "audio", "internvl2_1b": "vlm"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,6 +92,46 @@ def _np(t) -> np.ndarray:
 
 def _tokens(vocab, b, s, seed=0) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(np.int32)
+
+
+def _batch(cfg, b, s, seed=0) -> dict:
+    """The arch's inputs as numpy arrays: `_tokens` (B, S) for a
+    decoder-only arch; `SyntheticBatches`' step 0 (seq_len S) for an
+    enc-dec or VLM one (frames (B, S, D) and S // dec_ratio tokens, at
+    least 16; or image embeds (B, n_image_tokens, D) and S - n_image_tokens
+    tokens, at least 16)."""
+    if cfg.encoder_decoder or cfg.n_image_tokens:
+        return pipeline.SyntheticBatches(cfg, s, b, seed).batch(0)
+    return {"tokens": _tokens(cfg.vocab, b, s, seed)}
+
+
+def _jb(batch) -> dict:
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _tb(batch) -> dict:
+    return {k: _t(v) for k, v in batch.items()}
+
+
+def _fill_cross(rcache, cache, segs, seed=0):
+    """Seeded draws (float32, scale 0.5) into every cross-attending layer's
+    `xk`/`xv`, in the reference's stacked cache and the port's per-layer
+    one alike (repeat r of slot j is layer r·len(pattern) + j).  Returns
+    the reference's cache."""
+    rng = np.random.default_rng(seed)
+    rcache = [dict(seg) for seg in rcache]
+    for rseg, seg, (pat, reps) in zip(rcache, cache, segs, strict=True):
+        for j in range(len(pat)):
+            slot = dict(rseg[f"b{j}"])
+            for key in ("xk", "xv"):
+                if key not in slot:
+                    continue
+                a = (rng.standard_normal(slot[key].shape) * 0.5).astype(np.float32)
+                slot[key] = jnp.asarray(a).astype(slot[key].dtype)
+                for r in range(reps):
+                    seg[r * len(pat) + j][key].copy_(_t(a[r]))
+            rseg[f"b{j}"] = slot
+    return rcache
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,7 +181,7 @@ def _shapes(tree):
 
 def test_lm_builds_full_and_smoke(arch):
     for get in (configs.get_config, configs.get_smoke_config):
-        assert LM(get(arch)).cfg.family in ("moe", "ssm", "hybrid")
+        assert LM(get(arch)).cfg.family == FAMILIES[arch]
 
 
 def test_init_matches_reference_shapes(arch):
@@ -142,24 +191,32 @@ def test_init_matches_reference_shapes(arch):
     mine, _ = lm.init(torch.Generator(CPU).manual_seed(0))
     assert _shapes(mine) == _shapes(params)
     assert nn.param_count(mine) == sum(a.size for a in jax.tree.leaves(rparams))
-    assert np.isfinite(float(lm.loss(mine, CTX, {"tokens": _t(_tokens(lm.cfg.vocab, 2, 9))})))
+    assert np.isfinite(float(lm.loss(mine, CTX, _tb(_batch(lm.cfg, 2, 9)))))
 
 
 def test_full_width_init_matches_reference(arch):
     """The published config on the meta device (`nn.SHAPES`, nothing
-    allocated): per layer the reference's shapes (`jax.eval_shape`), every
-    leaf in its param dtype (jamba's bfloat16), the same parameter count."""
+    allocated): the reference's top-level leaves, per layer (the encoder's
+    too) the reference's shapes (`jax.eval_shape`), every leaf in its param
+    dtype (jamba's bfloat16), the same parameter count."""
     cfg = configs.get_config(arch)
     mine, _ = LM(cfg).init(nn.SHAPES)
     rlm = RLM(rconfigs.get_config(arch))
     rshapes = jax.eval_shape(lambda: rlm.init(jax.random.key(0))[0])
     assert all(a.device.type == "meta" and a.dtype == cfg.pdtype for a in nn.tree_leaves(mine))
     assert nn.param_count(mine) == sum(a.size for a in jax.tree.leaves(rshapes))
-    for seg_p, rseg, (pat, reps) in zip(mine["layers"], rshapes["layers"], rlm.segs, strict=True):
-        for r in range(reps):
-            for j in range(len(pat)):
-                got = nn.tree_map(lambda a: tuple(a.shape), seg_p[r * len(pat) + j])
-                assert got == jax.tree.map(lambda a: tuple(a.shape[1:]), rseg[f"b{j}"])
+    assert sorted(mine) == sorted(rshapes)
+    stacks = [("layers", rlm.segs)] + ([("enc_layers", rlm.enc_segs)] if cfg.encoder_decoder
+                                       else [])
+    for key, segs in stacks:
+        for seg_p, rseg, (pat, reps) in zip(mine[key], rshapes[key], segs, strict=True):
+            for r in range(reps):
+                for j in range(len(pat)):
+                    got = nn.tree_map(lambda a: tuple(a.shape), seg_p[r * len(pat) + j])
+                    assert got == jax.tree.map(lambda a: tuple(a.shape[1:]), rseg[f"b{j}"])
+    for key in mine.keys() - {k for k, _ in stacks}:
+        assert nn.tree_map(lambda a: tuple(a.shape), mine[key]) == jax.tree.map(
+            lambda a: tuple(a.shape), rshapes[key])
 
 
 def test_interop_carries_the_new_leaves():
@@ -216,20 +273,22 @@ def test_init_casts_each_leaf_as_it_is_drawn(monkeypatch):
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_model_matches_reference(arch, compute_dtype):
-    """prefill, loss and 8 teacher-forced decode steps."""
+    """prefill, loss and 8 teacher-forced decode steps (against a cross cache
+    of ENC_LEN seeded keys and values, enc-dec only)."""
     rlm, rparams, lm, params = _pair(arch, compute_dtype)
-    toks = _tokens(lm.cfg.vocab, 2, 40)
+    batch = _batch(lm.cfg, 2, 40)
+    toks = batch["tokens"]
     seen = _hidden_seen(lm)
-    want = jax.jit(rsteps.make_prefill_step(rlm, _rctx()))(rparams, {"tokens": jnp.asarray(toks)})
-    got = steps.make_prefill_step(lm, CTX)(params, {"tokens": _t(toks)})
+    want = jax.jit(rsteps.make_prefill_step(rlm, _rctx()))(rparams, _jb(batch))
+    got = steps.make_prefill_step(lm, CTX)(params, _tb(batch))
     _hold(got, want, seen[-1], rlm, rparams, compute_dtype, "prefill")
-    want_loss = float(jax.jit(lambda p, t: rlm.loss(p, _rctx(), {"tokens": t}))(
-        rparams, jnp.asarray(toks)))
-    got_loss = float(lm.loss(params, CTX, {"tokens": _t(toks)}))
+    want_loss = float(jax.jit(lambda p, b: rlm.loss(p, _rctx(), b))(rparams, _jb(batch)))
+    got_loss = float(lm.loss(params, CTX, _tb(batch)))
     assert abs(got_loss - want_loss) <= LOSS_REL[compute_dtype] * want_loss
     rstep = jax.jit(rsteps.make_decode_step(rlm, _rctx()))
-    rcache = rlm.init_cache(2, max_len=24, dtype=jnp.float32)
-    cache = lm.init_cache(2, max_len=24, dtype=torch.float32, device=CPU)
+    rcache = rlm.init_cache(2, max_len=24, enc_len=ENC_LEN, dtype=jnp.float32)
+    cache = lm.init_cache(2, max_len=24, dtype=torch.float32, enc_len=ENC_LEN, device=CPU)
+    rcache = _fill_cross(rcache, cache, lm.segs)
     for t in range(8):
         want, rcache = rstep(rparams, jnp.asarray(toks[:, t:t + 1]), rcache, jnp.int32(t))
         got, cache = lm.decode_step(params, CTX, _t(toks[:, t:t + 1]), cache, t)
@@ -267,11 +326,11 @@ def test_train_step_matches_reference(arch):
     ropt_cfg, opt_cfg = RAdamWConfig(lr=LR), AdamWConfig(lr=LR)
     ropt = radamw_init(rparams, ropt_cfg)
     opt = opt_state_from_reference(ropt, lm.cfg, device=CPU)
-    toks = _tokens(lm.cfg.vocab, 4, 16)
+    batch = _batch(lm.cfg, 4, 16)
     rstep = jax.jit(rsteps.make_train_step(rlm, _rctx(), ropt_cfg))
     step = steps.make_train_step(lm, CTX, opt_cfg)
-    rparams, ropt, rloss = rstep(rparams, ropt, {"tokens": jnp.asarray(toks)})
-    params, opt, loss = step(params, opt, {"tokens": _t(toks)})
+    rparams, ropt, rloss = rstep(rparams, ropt, _jb(batch))
+    params, opt, loss = step(params, opt, _tb(batch))
     assert abs(float(loss) - float(rloss)) <= LOSS_REL["float32"] * float(rloss)
     want = lm_params_from_reference(rparams, lm.cfg, device=CPU)
     d = torch.cat([(a - b).abs().flatten() for a, b in zip(
@@ -279,13 +338,13 @@ def test_train_step_matches_reference(arch):
     assert float((d > PARAM_ATOL).float().mean()) <= PARAM_SHARE and float(d.max()) <= 4 * LR
     losses = [float(loss)]
     for _ in range(3):
-        params, opt, loss = step(params, opt, {"tokens": _t(toks)})
+        params, opt, loss = step(params, opt, _tb(batch))
         losses.append(float(loss))
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
 
 
 # ---------------------------------------------------------------------------
-# the example and what is still refused
+# the example and the mixers
 # ---------------------------------------------------------------------------
 
 def test_serve_lm_example_matches_reference(arch, monkeypatch, capsys):
@@ -319,9 +378,7 @@ def test_serve_lm_example_matches_reference(arch, monkeypatch, capsys):
     assert "-> (2, 4)" in got
 
 
-def test_cross_attention_is_still_refused():
+def test_unknown_mixer_raises():
     cfg = configs.get_smoke_config("qwen3_14b")
-    with pytest.raises(NotImplementedError, match="enc-dec and VLM slice"):
-        tr.block_init(torch.Generator(CPU).manual_seed(0), cfg, tr.LayerSpec(cross_attn=True))
     with pytest.raises(ValueError):
         tr.block_init(torch.Generator(CPU).manual_seed(0), cfg, tr.LayerSpec(mixer="rwkv"))

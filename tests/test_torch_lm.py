@@ -61,7 +61,6 @@ from repro_torch.models import transformer as tr
 
 CPU = torch.device("cpu")
 DENSE = ["gemma3_4b", "qwen3_14b", "minitron_4b", "command_r_35b"]
-REFUSED = ["whisper_medium", "internvl2_1b"]
 NN_TOL = 1e-6
 ATTN_TOL = 1e-5
 LOGIT_REL = 1e-5       # of Σ|terms|, float32
@@ -399,7 +398,7 @@ def test_decode_wraps_the_ring_against_prefill():
 
 
 # ---------------------------------------------------------------------------
-# data, the example, refusals
+# data, the example, the mesh
 # ---------------------------------------------------------------------------
 
 def test_synthetic_tokens_byte_identical():
@@ -456,20 +455,6 @@ def test_serve_lm_without_a_card_exits_1(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert serve_lm.main(["--gen", "2"]) == 1
     assert "no CUDA device" in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("arch", REFUSED)
-def test_lm_refuses_families_of_later_slices(arch):
-    cfg = configs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="slice"):
-        LM(cfg)
-
-
-@pytest.mark.parametrize("spec", [LayerSpec(cross_attn=True)])
-def test_blocks_of_later_slices_raise(spec):
-    cfg = configs.get_smoke_config("qwen3_14b")
-    with pytest.raises(NotImplementedError, match="slice"):
-        tr.block_init(torch.Generator(CPU).manual_seed(0), cfg, spec)
 
 
 def test_mesh_of_more_ranks_raises():

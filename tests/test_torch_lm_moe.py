@@ -7,7 +7,6 @@ archs, with the cases that are not per arch split between it and
 tests/test_torch_lm_ssm.py."""
 import pytest
 from _lm_families import (  # noqa: F401 -- collected here
-    test_cross_attention_is_still_refused,
     test_full_width_init_matches_reference,
     test_generate_matches_reference,
     test_init_matches_reference_shapes,
@@ -16,6 +15,7 @@ from _lm_families import (  # noqa: F401 -- collected here
     test_model_matches_reference,
     test_serve_lm_example_matches_reference,
     test_train_step_matches_reference,
+    test_unknown_mixer_raises,
 )
 
 
