@@ -242,6 +242,26 @@ Phases, each fatal on failure:
      float32 moments, the same way, their FLOP bound each weight times the
      rows it multiplies (`encdec_flops`); the card-against-CPU check runs
      for all seven smoke configs on their `SyntheticBatches`;
+     4m. (after 4t) tensor, expert and FSDP parallelism
+     (`launch/shardings.py`, `models/comm.py`, the model-axis paths of the
+     LM stack), which reaches none of the three kernels either (checked):
+     two gloo ranks both on cuda:0 (NCCL refuses two ranks on one device;
+     gloo carries the all-gathers, reduce-scatters and all-reduces of
+     CUDA tensors) form a (1, 2) mesh; command-r-35b (full width, 4 of 40
+     layers, float32 compute, 9.16 GiB of weights a rank) and
+     qwen3-moe-30b-a3b (4 of 48 layers, 64 experts a rank) are drawn on
+     each rank from seed 0, each rank keeping its blocks; prefill of
+     `SyntheticTokens` seed 0 (batch 4, prompt 24) and `generate` (gen 12),
+     then (command-r) two train steps with 8-bit moments on 4 × 256; rank 0
+     then runs the one-rank path on the same card from the same seed:
+     prefill logits within 1e-5 of Σ|terms| of the final product, tokens
+     equal, losses within 1e-5 relative (1e-4 after the 8-bit update), the
+     MoE's dropped assignments equal to the capacity rule replayed over the
+     one-rank routing (none can drop on two model ranks: cap ≥ T·k); one
+     decode step's collectives and wire bytes are printed; meanwhile
+     `python -m repro_torch.launch.dryrun --all` costs every arch × shape
+     on the (16, 16) mesh on meta tensors (records in
+     results/dryrun_torch/), which must exit 0;
   6. print the `kernels` line, then, last, the device line.
 
 Tolerance (phases 3 and 4): the float kernel forms each nonzero's product
@@ -277,6 +297,7 @@ import inspect
 import io
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -318,6 +339,7 @@ from repro_torch.launch.elastic import elastic_restore  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch.steps import generate, make_decode_step, make_train_step  # noqa: E402
 from repro_torch.models import LM, MeshCtx  # noqa: E402
+from repro_torch.models import comm as comm_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import nn as lm_nn  # noqa: E402
 from repro_torch.core.mttkrp import _alto_decode  # noqa: E402
@@ -1772,9 +1794,9 @@ def hidden_states(lm):
     """Record every hidden state `lm._logits` is given, as float32."""
     seen, logits_of = [], lm._logits
 
-    def record(p, x):
+    def record(p, x, *ctx):
         seen.append(x.float())
-        return logits_of(p, x)
+        return logits_of(p, x, *ctx)
     lm._logits = record
     try:
         yield seen
@@ -2967,6 +2989,245 @@ def sync_sites(st, engine, analysis: AnalysisResult, device) -> tuple[int, int]:
     return launches, pinv_launches
 
 
+# ---------------------------------------------------------------------------
+# 4m. Tensor, expert and FSDP parallelism: two ranks on a (1, 2) mesh
+# ---------------------------------------------------------------------------
+
+TP_MESH = (1, 2)
+TP_DEPTHS = {"command-r-35b": 4, "qwen3-moe-30b-a3b": 4}   # full width, depth cut
+TP_TRAIN = "command-r-35b"          # one train step (8-bit moments) at (TP_BATCH, TP_SEQ)
+TP_BATCH, TP_SEQ = 4, 256
+TP_LOGIT_REL = 1e-5                 # prefill logits, mesh against one rank, of Σ|terms|
+TP_LOSS_REL = 1e-5                  # losses, mesh against one rank, relative
+TP_TRAINED_LOSS_REL = 1e-4          # the loss after the 8-bit update, relative
+TP_TIMEOUT = 600
+
+
+def tp_config(arch: str):
+    """The arch at full width, depth cut to TP_DEPTHS, float32 compute."""
+    return dataclasses.replace(get_config(arch), n_layers=TP_DEPTHS[arch],
+                               compute_dtype="float32")
+
+
+def tp_prompts(cfg, device) -> torch.Tensor:
+    return torch.from_numpy(SyntheticTokens(cfg.vocab, LM_PROMPT, LM_BATCH).batch(0)).to(device)
+
+
+def tp_train_batch(cfg, device) -> dict:
+    return {"tokens": torch.from_numpy(SyntheticTokens(cfg.vocab, TP_SEQ, TP_BATCH).batch(0))
+            .to(device)}
+
+
+def tp_serve(lm, params, ctx, prompts) -> dict:
+    """Prefill of the prompts and `generate` at serve_lm's sizes on `ctx`,
+    with the collectives of one decode step and the MoE drops."""
+    moe_mod.drops = 0
+    with torch.no_grad():
+        logits = train_steps.make_prefill_step(lm, ctx)(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = generate(lm, params, train_steps.make_ctx(ctx.mesh, seq_sharded=False)
+                      if ctx.mesh is not None else ctx, prompts, LM_GEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"logits": logits[:, 0].float().cpu(), "tokens": tokens.cpu(), "drops": moe_mod.drops,
+           "generate_s": wall, "steps": LM_PROMPT + LM_GEN - 1}
+    if ctx.mesh is not None:  # one decode step's collectives
+        cache = lm.init_cache(prompts.shape[0], max_len=LM_PROMPT + 8, dtype=torch.float32,
+                              device=prompts.device, ctx=ctx)
+        with comm_mod.record() as rec, torch.no_grad():
+            lm.decode_step(params, train_steps.make_ctx(ctx.mesh, seq_sharded=False),
+                           prompts[:, :1], cache, 0)
+        out["decode_collectives"] = collective_bytes(rec)
+    return out
+
+
+def tp_train(lm, params, ctx, device) -> dict:
+    """Two train steps (8-bit moments) on one batch: the losses."""
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, use_8bit=True)
+    specs = train_steps.param_specs(lm, ctx)
+    opt = (adamw_init(params, opt_cfg) if specs is None
+           else adamw_init(params, opt_cfg, specs=specs, mesh=ctx.mesh))
+    step = make_train_step(lm, ctx, opt_cfg)
+    batch = tp_train_batch(lm.cfg, device)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        params, opt, loss = step(params, opt, batch)
+        losses.append(float(loss))
+    return {"losses": losses, "train_s": time.perf_counter() - t0}
+
+
+def tp_worker(rank: int, world: int, init: str, out_dir: str) -> None:
+    """One rank of the (1, 2) gloo mesh on cuda:0; rank 0 then runs the
+    one-rank path alone and writes both results."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    from repro_torch.launch import make_local_mesh
+    mesh = make_local_mesh(*TP_MESH, device=device)
+    ctx = train_steps.make_ctx(mesh)
+    res = {"backend": dist.get_backend(), "mesh": list(mesh.shape), "arch": {}}
+    for arch in TP_DEPTHS:
+        cfg = tp_config(arch)
+        lm = LM(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        params, _ = lm.init(torch.Generator(device).manual_seed(0), mesh=mesh)
+        held = sum(a.numel() * a.element_size() for a in lm_nn.tree_leaves(params))
+        r = tp_serve(lm, params, ctx, tp_prompts(cfg, device))
+        r["held_bytes"] = held
+        if arch == TP_TRAIN:
+            r.update(tp_train(lm, params, ctx, device))
+        drops = torch.tensor([r["drops"]])
+        dist.all_reduce(drops)
+        r["drops"] = int(drops)
+        r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        res["arch"][arch] = r
+        del params
+        torch.cuda.empty_cache()
+    res["launches"] = (mttkrp_kernel.launches, mttkrp_fixed_kernel.launches, gram_pinv.launches)
+    dist.barrier()
+    if rank == 0:
+        one = {}
+        for arch in TP_DEPTHS:
+            cfg = tp_config(arch)
+            lm = LM(cfg)
+            params, _ = lm.init(torch.Generator(device).manual_seed(0))
+            routes = []
+            route = moe_mod._route
+
+            def record(cfg_, xt, router, route=route):
+                gates, eids = route(cfg_, xt, router)
+                routes.append(eids.cpu())
+                return gates, eids
+            moe_mod._route = record
+            try:
+                with hidden_states(lm) as seen:
+                    r = tp_serve(lm, params, MeshCtx(mesh=None), tp_prompts(cfg, device))
+                r["terms"] = abs_terms(lm, params, seen[0][:, -1]).cpu()
+            finally:
+                moe_mod._route = route
+            r["replayed_drops"] = tp_replay_drops(cfg, routes)
+            if arch == TP_TRAIN:
+                r.update(tp_train(lm, params, MeshCtx(mesh=None), device))
+            one[arch] = r
+            del params
+            torch.cuda.empty_cache()
+        torch.save({"mesh": res, "one": one}, out_dir + "/tp.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_replay_drops(cfg, routes) -> int:
+    """The reference's capacity rule replayed in one process over the
+    routing of every MoE call: each of the TP_MESH model ranks keeps
+    cap = min(T·k, max(round_up(2·T·k·e_loc/E, 128), 128)) of the
+    assignments to its experts; the rest drop."""
+    if not cfg.n_experts:
+        return 0
+    tp = TP_MESH[1]
+    e_loc = cfg.n_experts // tp
+    dropped = 0
+    for eids in routes:
+        cap = min(eids.numel(), max(-(-int(eids.numel() * e_loc / cfg.n_experts * 2.0)
+                                      // 128) * 128, 128))
+        for r in range(tp):
+            local = int(((eids >= r * e_loc) & (eids < (r + 1) * e_loc)).sum())
+            dropped += max(0, local - cap)
+    return dropped
+
+
+def dryrun_sweep(out: Path) -> subprocess.Popen:
+    """`python -m repro_torch.launch.dryrun --all` on the (16, 16) mesh, in
+    the background: meta tensors on the host."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                             "--out", str(out)], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def tp_checks(smi_line: str) -> None:
+    """Phase 4m: two gloo ranks both on cuda:0 (NCCL refuses two ranks on
+    one device) serve command-r-35b and qwen3-moe-30b-a3b at full width on
+    a (1, 2) mesh and train command-r-35b one step, held to the one-rank
+    path on the same card; the dry run over every arch × shape meanwhile."""
+    log(f"[4m] this process holds {torch.cuda.memory_allocated() / 2**30:.3f} GiB on the card")
+    sweep_out = ROOT / "results" / "dryrun_torch"
+    sweep = dryrun_sweep(sweep_out)
+    tmp = tempfile.mkdtemp(prefix="tp_")
+    world = TP_MESH[0] * TP_MESH[1]
+    # two processes share the card: keep their caching allocators from fragmenting it
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=tp_worker, args=(r, world, f"file://{tmp}/init", tmp))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(TP_TIMEOUT)
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    if hung or any(p.exitcode != 0 for p in procs):
+        sweep.kill()
+        sweep.communicate()
+        fail(f"[4m] a rank of the (1, 2) mesh failed or hung: exit codes "
+             f"{[p.exitcode for p in procs]}")
+    got = torch.load(f"{tmp}/tp.pt")
+    shutil.rmtree(tmp, ignore_errors=True)
+    mesh, one = got["mesh"], got["one"]
+    log(f"[4m] multi-rank part ran: {world} ranks, backend {mesh['backend']}, both on cuda:0, "
+        f"mesh {dict(zip(('data', 'model'), mesh['mesh']))}; {time.perf_counter() - t0:.1f}s "
+        f"with the one-rank path; on {smi_line}")
+    if mesh["launches"] != (0, 0, 0):
+        fail(f"[4m] the mesh path launched MTTKRP/Gram kernels: {mesh['launches']}")
+    ok = True
+    for arch, m in mesh["arch"].items():
+        o = one[arch]
+        err = (m["logits"] - o["logits"]).abs()
+        rel = float((err / o["terms"]).max())
+        same = bool(torch.equal(m["tokens"], o["tokens"]))
+        d = m["decode_collectives"]
+        log(f"[4m] {arch} full width at {TP_DEPTHS[arch]} layers, float32: prefill logits max "
+            f"|Δ| {float(err.max()):.3e}, {rel:.3e} of Σ|terms| (tolerance {TP_LOGIT_REL}); "
+            f"generate's tokens equal {same}; per rank {m['held_bytes'] / 2**30:.3f} GiB of "
+            f"params, peak {m['peak_bytes'] / 2**30:.3f} GiB; one decode step: "
+            f"{d['count']} collectives, {d['total_wire_bytes'] / 2**20:.3f} MiB on the wire a "
+            f"rank; generate {m['generate_s'] * 1e3 / m['steps']:.3f} ms a step on the mesh, "
+            f"{o['generate_s'] * 1e3 / o['steps']:.3f} on one rank")
+        ok &= rel <= TP_LOGIT_REL and same
+        if tp_config(arch).n_experts:
+            log(f"[4m]   {arch}: dropped assignments on the mesh {m['drops']}, the capacity "
+                f"rule replayed over the one-rank run's routing {o['replayed_drops']}; on "
+                f"{TP_MESH[1]} model ranks cap ≥ T·k, so none can drop")
+            ok &= m["drops"] == o["replayed_drops"]
+        if "losses" in m:
+            l0 = abs(m["losses"][0] - o["losses"][0]) / abs(o["losses"][0])
+            l1 = abs(m["losses"][1] - o["losses"][1]) / abs(o["losses"][1])
+            log(f"[4m] {arch} train, 8-bit moments, batch ({TP_BATCH}, {TP_SEQ}): losses mesh "
+                f"{m['losses']} one rank {o['losses']} (relative {l0:.2e} ≤ {TP_LOSS_REL}, after "
+                f"the update {l1:.2e} ≤ {TP_TRAINED_LOSS_REL}); two steps {m['train_s']:.2f}s on "
+                f"the mesh, {o['train_s']:.2f}s on one rank")
+            ok &= l0 <= TP_LOSS_REL and l1 <= TP_TRAINED_LOSS_REL
+    if not ok:
+        fail("[4m] the (1, 2) mesh left the one-rank path")
+    out, _ = sweep.communicate(timeout=TP_TIMEOUT)
+    lines = [ln for ln in out.splitlines() if ln.startswith("[dryrun]")]
+    n_ok = sum(": ok " in ln for ln in lines)
+    n_skip = sum(": SKIP" in ln for ln in lines)
+    log(f"[4m] dry run, every arch × shape on the (16, 16) mesh on meta tensors: {n_ok} costed, "
+        f"{n_skip} skipped, exit {sweep.returncode}; records in {sweep_out.relative_to(ROOT)}")
+    for ln in lines:
+        if "command_r_35b" in ln or "FAIL" in ln:
+            log(f"[4m]   {ln}")
+    if sweep.returncode != 0 or n_ok + n_skip != len(lines) or not lines:
+        fail("[4m] the dry run failed")
+
+
 def main() -> int:
     # 1. Device check.
     if not torch.cuda.is_available():
@@ -3283,6 +3544,12 @@ def main() -> int:
     t0 = time.perf_counter()
     train_checks(device, smi.splitlines()[0])
     log(f"[4t] phase took {time.perf_counter() - t0:.1f}s on {smi.splitlines()[0]}")
+
+    # 4m. Tensor parallelism: two gloo ranks on a (1, 2) mesh, and the dry run.
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp_checks(smi.splitlines()[0])
+    log(f"[4m] phase took {time.perf_counter() - t0:.1f}s on {smi.splitlines()[0]}")
     smi_after = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,

@@ -12,7 +12,10 @@ Restore is elastic: the arrays are read on the host and placed on the
 device the caller names, in the structure and dtypes of a like-tree (meta
 tensors will do), so a run can resume on another number of ranks
 (`repro_torch.launch.elastic`).  Under a group of more than one rank only
-rank 0 writes; the ranks' params are replicas.
+rank 0 writes.  On a mesh (`shardings` and `mesh` given: the tree's
+resolved specs) the file holds the host layout, the whole arrays, as the
+reference's does: each leaf is gathered over the ranks, one at a time, and
+rank 0 writes; a restore cuts every rank's block from the whole arrays.
 """
 from __future__ import annotations
 
@@ -62,12 +65,31 @@ def _write(path: str, step: int, leaves: list[np.ndarray], treedef: str) -> str:
     return d
 
 
-def save_checkpoint(path: str, step: int, tree) -> str:
+def _host_leaves(tree, shardings, mesh) -> list[np.ndarray] | None:
+    """The whole leaves as host arrays on rank 0 (None on the others),
+    each leaf gathered over the mesh in turn when `shardings` is given."""
+    if shardings is None:
+        return [_host(a) for a in tree_leaves(tree)] if world_rank() == 0 else None
+    from ..launch.shardings import gather_tree, leaves_with_paths
+    specs = [s for _, s in leaves_with_paths(shardings)]
+    out = []
+    for a, spec in zip(tree_leaves(tree), specs, strict=True):
+        whole = gather_tree(a, spec, mesh)
+        if world_rank() == 0:
+            out.append(_host(whole))
+        del whole
+    return out if world_rank() == 0 else None
+
+
+def save_checkpoint(path: str, step: int, tree, *, shardings=None, mesh=None) -> str:
     """Write `tree` (tensors or numpy arrays) as step `step`; returns its
-    directory.  Only rank 0 of a group writes."""
-    if world_rank() != 0:
+    directory.  Only rank 0 of a group writes; with `shardings` (the
+    tree's specs on `mesh`) every rank takes part in gathering the whole
+    leaves first."""
+    leaves = _host_leaves(tree, shardings, mesh)
+    if leaves is None:
         return _step_dir(path, step)
-    return _write(path, step, [_host(a) for a in tree_leaves(tree)], _treedef(tree))
+    return _write(path, step, leaves, _treedef(tree))
 
 
 def latest_step(path: str) -> int | None:
@@ -79,16 +101,21 @@ def latest_step(path: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(path: str, step: int, like_tree, device: str | torch.device | None = None):
+def restore_checkpoint(path: str, step: int, like_tree, device: str | torch.device | None = None,
+                       *, shardings=None, mesh=None):
     """Step `step` in the structure of `like_tree`, every leaf on `device`
     (None → the CUDA card) with the like-tree's dtype and shape; a leaf of
     another dtype or shape, a count of leaves that differs, or an
-    uncommitted step raises."""
+    uncommitted step raises.  With `shardings` (specs of the whole tree on
+    `mesh`) each leaf is this rank's block of the whole array."""
     device = resolve_device(device)
     d = _step_dir(path, step)
     if not os.path.exists(os.path.join(d, _COMMIT)):
         raise FileNotFoundError(f"uncommitted checkpoint {d}")
     like = tree_leaves(like_tree)
+    if shardings is not None:
+        from ..launch.shardings import block_slices, leaves_with_paths
+        specs = [s for _, s in leaves_with_paths(shardings)]
     out = []
     with np.load(os.path.join(d, "arrays.npz")) as data:
         if len(data.files) != len(like):
@@ -99,7 +126,9 @@ def restore_checkpoint(path: str, step: int, like_tree, device: str | torch.devi
             if t.dtype != want.dtype or tuple(t.shape) != tuple(want.shape):
                 raise ValueError(f"{d} leaf {i}: {t.dtype} {tuple(t.shape)}, the tree wants "
                                  f"{want.dtype} {tuple(want.shape)}")
-            out.append(t.to(device))
+            if shardings is not None:
+                t = t[block_slices(mesh, tuple(t.shape), specs[i])].clone()
+            out.append(t.to(device).contiguous())
     return tree_unflatten(like_tree, out)
 
 
@@ -111,10 +140,12 @@ class AsyncCheckpointer:
         self.path = path
         self._thread: threading.Thread | None = None
 
-    def save(self, step: int, tree) -> None:
-        if world_rank() != 0:
+    def save(self, step: int, tree, *, shardings=None, mesh=None) -> None:
+        """`shardings` and `mesh` as `save_checkpoint`'s: the gather runs
+        before this returns, the write in the background."""
+        leaves = _host_leaves(tree, shardings, mesh)  # the snapshot, before the thread
+        if leaves is None:
             return
-        leaves = [_host(a) for a in tree_leaves(tree)]  # the snapshot, before the thread
         self.wait()
         self._thread = threading.Thread(target=_write,
                                         args=(self.path, step, leaves, _treedef(tree)))

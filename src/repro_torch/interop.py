@@ -78,14 +78,31 @@ def qfactors_from_reference(qfactors, device: str | torch.device | None = None):
     return out
 
 
-def lm_params_from_reference(params, cfg, device: str | torch.device | None = None) -> dict:
+def _on_mesh(tree, cfg, mesh, opt_cfg=None):
+    """tree (whole params, or an AdamW state with `opt_cfg`) cut to this
+    rank's blocks on `mesh` (`launch.shardings`)."""
+    from .launch import shardings as sh
+    from .models.model import LM
+    structs, specs = sh.init_shapes(LM(cfg))
+    p_sh = sh.param_shardings(mesh, structs, specs)
+    if opt_cfg is None:
+        return sh.shard_tree(tree, p_sh, mesh)
+    from .launch.steps import init_opt_shapes
+    return sh.shard_tree(tree, sh.opt_shardings(mesh, init_opt_shapes(structs, opt_cfg), p_sh),
+                         mesh)
+
+
+def lm_params_from_reference(params, cfg, device: str | torch.device | None = None, *,
+                             mesh=None) -> dict:
     """The reference's `LM.init` params (numpy or JAX arrays) as the port's,
     on `device` (None → the CUDA card), same dtypes.  The reference stacks
     each segment's pattern slot over its repeats (`{"b0": stacked, ...}`);
     repeat r of slot j becomes the port's layer r·len(pattern) + j of that
     segment, for the decoder's `layers` and an enc-dec model's `enc_layers`
     (one bidirectional block repeated `n_enc_layers` times).  The other
-    leaves (`enc_norm` and `img_proj` among them) pass through."""
+    leaves (`enc_norm` and `img_proj` among them) pass through.  With a
+    `mesh`, each leaf is this rank's block of it (`shard_tree` by the
+    resolved specs)."""
     device = resolve_device(device)
 
     def to_tensor(a):
@@ -98,21 +115,25 @@ def lm_params_from_reference(params, cfg, device: str | torch.device | None = No
     layouts = {"layers": segment_layout(cfg.n_layers, cfg.pattern)}
     if cfg.encoder_decoder:
         layouts["enc_layers"] = segment_layout(cfg.n_enc_layers, (ENC_SPEC,))
-    return {k: unstack(v, layouts[k]) if k in layouts else tree_map(to_tensor, v)
-            for k, v in params.items()}
+    out = {k: unstack(v, layouts[k]) if k in layouts else tree_map(to_tensor, v)
+           for k, v in params.items()}
+    return out if mesh is None else _on_mesh(out, cfg, mesh)
 
 
-def opt_state_from_reference(opt_state, cfg, device: str | torch.device | None = None) -> dict:
+def opt_state_from_reference(opt_state, cfg, device: str | torch.device | None = None, *,
+                             mesh=None, opt_cfg=None) -> dict:
     """The reference's AdamW state for an LM's params (`adamw_init` or
     `adamw_update`'s) as the port's, on `device` (None → the CUDA card):
     `m` and `v` unstacked layer by layer as `lm_params_from_reference`
     unstacks the params (an 8-bit moment's `{"q", "s"}` too: its blocks lie
     along the last axis, so a row of the stack is that layer's state), and
-    `step` a 0-d int32 tensor."""
+    `step` a 0-d int32 tensor.  With a `mesh` (and the state's `opt_cfg`),
+    this rank's blocks as `opt_shardings` places them."""
     device = resolve_device(device)
-    return {"m": lm_params_from_reference(opt_state["m"], cfg, device),
-            "v": lm_params_from_reference(opt_state["v"], cfg, device),
-            "step": torch.from_numpy(np.array(opt_state["step"], dtype=np.int32)).to(device)}
+    out = {"m": lm_params_from_reference(opt_state["m"], cfg, device),
+           "v": lm_params_from_reference(opt_state["v"], cfg, device),
+           "step": torch.from_numpy(np.array(opt_state["step"], dtype=np.int32)).to(device)}
+    return out if mesh is None else _on_mesh(out, cfg, mesh, opt_cfg)
 
 
 def cp_state_from_reference(state, device: str | torch.device | None = None):

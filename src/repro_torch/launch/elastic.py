@@ -15,29 +15,28 @@ import torch
 
 from ..checkpoint import latest_step, restore_checkpoint
 from ..models import LM
-from ..models.nn import SHAPES
-from ..models.transformer import later
 from ..optim import AdamWConfig
 from .mesh import make_local_mesh
-from .steps import init_opt_shapes
+from .shardings import init_shapes
+from .steps import init_opt_shapes, state_shardings
 
 __all__ = ["elastic_restore"]
 
 
 def elastic_restore(lm: LM, ckpt_dir: str, opt_cfg: AdamWConfig, n_model: int = 1,
                     device: str | torch.device | None = None):
-    """Rebuild the mesh from the live ranks (`make_local_mesh`; `device`
-    None → the CUDA card over NCCL, "cpu" → gloo) and restore the latest
-    committed `{"params", "opt"}` checkpoint on every rank.  Returns (mesh,
-    params, opt_state, step), or None when there is no checkpoint.  A model
-    axis of more than one rank raises: that is the tensor-parallel slice."""
-    if n_model > 1:
-        raise later("multi-card")
+    """Rebuild the mesh from the live ranks (`make_local_mesh(n_model=...)`;
+    `device` None → the CUDA card over NCCL, "cpu" → gloo), recompute the
+    shardings against it and restore the latest committed `{"params",
+    "opt"}` checkpoint, written from any earlier mesh, as every rank's
+    blocks.  Returns (mesh, params, opt_state, step), or None when there is
+    no checkpoint."""
     step = latest_step(ckpt_dir)
     if step is None:
         return None
     mesh = make_local_mesh(n_model=n_model, device=device)
-    params, _ = lm.init(SHAPES)
-    like = {"params": params, "opt": init_opt_shapes(params, opt_cfg)}
-    state = restore_checkpoint(ckpt_dir, step, like, device=device)
+    structs, _ = init_shapes(lm)
+    like = {"params": structs, "opt": init_opt_shapes(structs, opt_cfg)}
+    state = restore_checkpoint(ckpt_dir, step, like, device=device,
+                               shardings=state_shardings(lm, mesh, opt_cfg), mesh=mesh)
     return mesh, state["params"], state["opt"], step

@@ -6,6 +6,17 @@ Plain torch products, as the reference's are plain jnp: logits and their
 softcap in float32, masked with NEG_INF = -1e30 (not -inf, so a row with no
 valid key stays finite).  `F.scaled_dot_product_attention` is not used: it
 has no softcap and no ring mask.
+
+On a model axis of tp ranks attention is head-parallel (`local_attn`):
+rank r runs query heads [r·H/tp, (r+1)·H/tp) against the KV heads their
+GQA groups read, with its block of `wq` and of `wo`'s rows, and its output
+is a partial product that the block reduces.  The KV heads are rank r's
+block of `wk`/`wv` when KH divides over tp; otherwise (8 KV heads on 16
+ranks: a rank's block of the flat columns is half a head) `wk`/`wv` are
+gathered and the heads the rank's queries read are cut from them.  Where
+the query heads do not split into whole GQA groups, or not at all, the
+weights are gathered and attention runs replicated.  The decode cache
+holds the rank's KV heads (`head_plan`).
 """
 from __future__ import annotations
 
@@ -18,7 +29,7 @@ import torch.nn.functional as F
 from . import nn
 
 __all__ = ["AttnConfig", "attn_init", "attention", "attn_decode", "attn_cross_decode",
-           "cache_len", "init_kv_cache"]
+           "cache_len", "init_kv_cache", "head_plan", "local_attn"]
 
 NEG_INF = -1e30
 _KV_PAD = 2 ** 30  # the position of a padded key: past every query
@@ -252,3 +263,50 @@ def attn_cross_decode(p, cfg: AttnConfig, x, enc_k, enc_v):
         q = nn.rmsnorm(p["qn"], q)
     out = _sdpa(dataclasses.replace(cfg, causal=False, rope=False), q, enc_k, enc_v, None)
     return nn.linear(p["wo"], out.reshape(b, 1, -1))
+
+
+# ---------------------------------------------------------------------------
+# Head parallelism over a mesh's model axis
+# ---------------------------------------------------------------------------
+
+def head_plan(cfg: AttnConfig, ctx):
+    """(q0, n_q, kv0, n_kv) — the query heads and KV heads this rank of the
+    model axis runs; None when attention runs replicated (a model axis of
+    one rank, heads that do not divide, or groups split unevenly)."""
+    tp = ctx.size(ctx.tp)
+    h, kh = cfg.n_heads, cfg.n_kv_heads
+    if tp == 1 or h % tp:
+        return None
+    n_q, g = h // tp, h // kh
+    if n_q % g and g % n_q:
+        return None
+    q0 = ctx.coord(ctx.tp) * n_q
+    kv0 = q0 // g
+    return q0, n_q, kv0, (q0 + n_q - 1) // g + 1 - kv0
+
+
+def local_attn(p, cfg: AttnConfig, ctx):
+    """(weights, config, partial, out_bias) of this rank: head-parallel
+    blocks (partial True: the output of `wo`'s rows is a partial sum, and
+    `wo`'s bias, returned apart, is added once after the reduction), or the
+    whole weights (partial False)."""
+    specs = ctx.specs(attn_init, cfg)
+    plan = head_plan(cfg, ctx)
+    if plan is None:
+        return ctx.weights(p, specs), cfg, False, None
+    tp = (ctx.tp,)
+    q0, n_q, kv0, n_kv = plan
+    hd = cfg.head_dim
+    w = {"wq": ctx.weights(p["wq"], specs["wq"], keep=tp),
+         "wo": {"w": ctx.weight(p["wo"]["w"], specs["wo"]["w"], keep=tp)}}
+    for name in ("wk", "wv"):
+        if cfg.n_kv_heads % ctx.size(ctx.tp) == 0:
+            w[name] = ctx.weights(p[name], specs[name], keep=tp)
+        else:
+            cols = slice(kv0 * hd, (kv0 + n_kv) * hd)
+            w[name] = {k: v[..., cols] for k, v in ctx.weights(p[name], specs[name]).items()}
+    for name in ("qn", "kn"):
+        if name in p:
+            w[name] = ctx.weights(p[name], specs[name])
+    bias = ctx.weight(p["wo"]["b"], specs["wo"]["b"]) if "b" in p["wo"] else None
+    return w, dataclasses.replace(cfg, n_heads=n_q, n_kv_heads=n_kv), True, bias

@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from . import nn
+from . import comm, nn
 from .moe import MoEConfig
 from .transformer import (LayerSpec, MeshCtx, init_stack_cache, segment_layout, stack_apply,
                           stack_decode, stack_init)
@@ -123,58 +123,105 @@ class LM(torch.nn.Module):
 
     # -- init ---------------------------------------------------------------
 
-    def init(self, generator: torch.Generator):
+    def init(self, generator: torch.Generator, *, mesh=None):
         """(params, specs), drawn from `generator` on its device (`nn.SHAPES`:
         meta tensors, nothing allocated).  Each leaf is drawn in float32 and
         cast to cfg.pdtype before the next is drawn, so a bfloat16 model
         never has a float32 copy (the reference casts the whole float32
-        tree at the end)."""
+        tree at the end).  With a `mesh`, each part (the embedding, each
+        layer, ...) is cut to this rank's blocks (`launch.shardings`) as
+        soon as it is drawn: every rank draws the same whole weights, one
+        part at a time, and keeps its blocks."""
         cfg = self.cfg
         dt = cfg.pdtype
+        def place(p, s):
+            if mesh is None:
+                return p
+            from ..launch.shardings import param_shardings, shard_tree
+            return shard_tree(p, param_shardings(mesh, p, s), mesh)
         p, s = {}, {}
         p["embed"], s["embed"] = nn.embed_init(generator, cfg.vocab, cfg.d_model, dtype=dt)
+        p["embed"] = place(p["embed"], s["embed"])
         p["final_norm"], s["final_norm"] = nn.rmsnorm_init(cfg.d_model, generator.device, dt)
         pattern = self.segs[0][0]
-        p["layers"], s["layers"], _ = stack_init(generator, cfg, pattern, cfg.n_layers)
+        p["layers"], s["layers"], _ = stack_init(generator, cfg, pattern, cfg.n_layers, place)
         if not cfg.tie_embeddings:
             p["unembed"], s["unembed"] = nn.dense_init(
                 generator, cfg.d_model, cfg.vocab, axes=("embed", "vocab"),
                 scale=cfg.d_model ** -0.5, dtype=dt)
+            p["unembed"] = place(p["unembed"], s["unembed"])
         if cfg.encoder_decoder:
             p["enc_layers"], s["enc_layers"], _ = stack_init(
-                generator, cfg, self.enc_segs[0][0], cfg.n_enc_layers)
+                generator, cfg, self.enc_segs[0][0], cfg.n_enc_layers, place)
             p["enc_norm"], s["enc_norm"] = nn.rmsnorm_init(cfg.d_model, generator.device, dt)
         if cfg.n_image_tokens:
             p["img_proj"], s["img_proj"] = nn.dense_init(
                 generator, cfg.d_model, cfg.d_model, axes=("embed", None), dtype=dt)
+            p["img_proj"] = place(p["img_proj"], s["img_proj"])
         return p, s
 
     # -- shared pieces --------------------------------------------------------
 
-    def _embed(self, p, tokens):
-        """Rows of the table in the compute dtype, then the sqrt(d_model) scale."""
+    def _vocab_spec(self, ctx: MeshCtx, untied: bool):
+        """The resolved spec of the (un)embedding and whether its vocabulary
+        is split over the model axis."""
         cfg = self.cfg
-        x = p["embed"]["w"][tokens].to(cfg.cdtype)
+        shape, axes = (((cfg.d_model, cfg.vocab), ("embed", "vocab")) if untied
+                       else ((cfg.vocab, cfg.d_model), ("vocab", "embed")))
+        spec = ctx.resolve(shape, axes)
+        return spec, spec is not None and spec[axes.index("vocab")] == ctx.tp \
+            and ctx.size(ctx.tp) > 1
+
+    def _embed(self, p, ctx: MeshCtx, tokens):
+        """Rows of the table in the compute dtype, then the sqrt(d_model)
+        scale.  A vocabulary split over the model axis is looked up by each
+        rank in its block (other rows zero) and summed over the axis."""
+        cfg = self.cfg
+        spec, split = self._vocab_spec(ctx, False)
+        w = p["embed"]["w"] if spec is None else ctx.weight(p["embed"]["w"], spec, (ctx.tp,))
+        if split:
+            n = w.shape[0]
+            ids = tokens.long() - ctx.coord(ctx.tp) * n
+            ok = (ids >= 0) & (ids < n)
+            x = torch.where(ok[..., None], w[ids.clamp(0, n - 1)].to(cfg.cdtype), 0)
+            x = comm.all_reduce(x, ctx.group(ctx.tp))
+        else:
+            x = w[tokens].to(cfg.cdtype)
         if cfg.scale_embed:
             x = x * nn.weak(math.sqrt(cfg.d_model), x.dtype)
         return x
 
-    def _logits(self, p, x):
-        """x @ the (tied) unembedding in x's dtype; the final softcap in float32."""
+    def _logits(self, p, x, ctx: MeshCtx | None = None):
+        """x @ the (tied) unembedding in x's dtype, the final softcap in
+        float32: this rank's block of the vocabulary when it is split over
+        the model axis (`_vocab_spec`)."""
         cfg = self.cfg
-        w = (p["embed"]["w"].T if cfg.tie_embeddings else p["unembed"]["w"]).to(x.dtype)
-        logits = x @ w
+        untied = not cfg.tie_embeddings
+        w = p["unembed"]["w"] if untied else p["embed"]["w"]
+        if ctx is not None:
+            spec, split = self._vocab_spec(ctx, untied)
+            if spec is not None:
+                w = ctx.weight(w, spec, (ctx.tp,) if split else ())
+        logits = x @ (w if untied else w.T).to(x.dtype)
         if cfg.final_softcap:
             logits = nn.softcap(logits.float(), cfg.final_softcap)
         return logits
 
+    def _whole_logits(self, p, ctx: MeshCtx, x):
+        """The logits of the whole vocabulary on every rank."""
+        logits = self._logits(p, x, ctx)
+        split = self._vocab_spec(ctx, not self.cfg.tie_embeddings)[1]
+        return comm.all_gather(logits, -1, ctx.group(ctx.tp)) if split else logits
+
     def _encode(self, p, ctx: MeshCtx, frames):
-        """The encoder stack over stub frame embeddings (B, S_enc, D)."""
+        """The encoder stack over stub frame embeddings (B, S_enc, D); its
+        output whole over the model axis."""
         cfg = self.cfg
         x = frames.to(cfg.cdtype)
+        ctx = ctx.for_seq(x.shape[1])
         pos = torch.arange(x.shape[1], device=x.device)
-        x = stack_apply(p["enc_layers"], cfg, self.enc_segs, ctx, x, positions=pos)
-        return nn.rmsnorm(p["enc_norm"], x, cfg.norm_eps)
+        x = stack_apply(p["enc_layers"], cfg, self.enc_segs, ctx, ctx.resid(x), positions=pos)
+        return ctx.full(nn.rmsnorm(p["enc_norm"], x, cfg.norm_eps))
 
     def _backbone_inputs(self, p, ctx: MeshCtx, batch):
         """(x, enc_out): the decoder's input (B, S, D) and the encoder's
@@ -183,58 +230,76 @@ class LM(torch.nn.Module):
         audio-frontend model without an encoder takes batch["frames"] as x."""
         cfg = self.cfg
         if cfg.encoder_decoder:
-            return self._embed(p, batch["tokens"]), self._encode(p, ctx, batch["frames"])
+            return self._embed(p, ctx, batch["tokens"]), self._encode(p, ctx, batch["frames"])
         if cfg.n_image_tokens:
-            img = nn.linear(p["img_proj"], batch["image_embeds"].to(cfg.cdtype))
-            return torch.cat([img, self._embed(p, batch["tokens"])], dim=1), None
+            spec = ctx.resolve((cfg.d_model, cfg.d_model), ("embed", None))
+            w = p["img_proj"] if spec is None else {"w": ctx.weight(p["img_proj"]["w"], spec)}
+            img = nn.linear(w, batch["image_embeds"].to(cfg.cdtype))
+            return torch.cat([img, self._embed(p, ctx, batch["tokens"])], dim=1), None
         if cfg.audio_frontend:
             return batch["frames"].to(cfg.cdtype), None
-        return self._embed(p, batch["tokens"]), None
+        return self._embed(p, ctx, batch["tokens"]), None
 
     def _backbone(self, p, ctx: MeshCtx, batch):
+        """The final norm's output (B, S, D), whole over the model axis."""
         x, enc_out = self._backbone_inputs(p, ctx, batch)
-        x = ctx.resid(x)
+        ctx = ctx.for_seq(x.shape[1])
         positions = torch.arange(x.shape[1], device=x.device)
-        x = stack_apply(p["layers"], self.cfg, self.segs, ctx, x, positions=positions,
-                        enc_out=enc_out)
-        return nn.rmsnorm(p["final_norm"], x, self.cfg.norm_eps)
+        x = stack_apply(p["layers"], self.cfg, self.segs, ctx, ctx.resid(x),
+                        positions=positions, enc_out=enc_out)
+        return ctx.full(nn.rmsnorm(p["final_norm"], x, self.cfg.norm_eps))
 
     # -- train --------------------------------------------------------------
 
     def loss(self, p, ctx: MeshCtx, batch):
         """Mean next-token cross-entropy over batch["tokens"] (B, S); a VLM's
-        over the text tail only."""
-        x = ctx.shard(self._backbone(p, ctx, batch), ctx.dp, None, None)
+        over the text tail only.  On a mesh, `batch` is this rank's rows
+        and the loss theirs; a vocabulary split over the model axis takes
+        its log-sum-exp and target logits over the ranks' blocks."""
+        x = self._backbone(p, ctx, batch)
         if self.cfg.n_image_tokens:
             x = x[:, self.cfg.n_image_tokens:]
-        logits = ctx.shard(self._logits(p, x), ctx.dp, None, ctx.tp)
+        split = self._vocab_spec(ctx, not self.cfg.tie_embeddings)[1]
+        logits = self._logits(p, x, ctx)
         targets = batch["tokens"][:, 1:].long()
         logits = logits[:, :-1].float()
-        lse = torch.logsumexp(logits, dim=-1)
-        true = torch.gather(logits, -1, targets[..., None])[..., 0]
+        if not split:
+            lse = torch.logsumexp(logits, dim=-1)
+            true = torch.gather(logits, -1, targets[..., None])[..., 0]
+            return torch.mean(lse - true)
+        g = ctx.group(ctx.tp)
+        n = logits.shape[-1]
+        m = comm.all_reduce_max(logits.amax(dim=-1), g)
+        lse = m + torch.log(comm.all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), g))
+        ids = targets - ctx.coord(ctx.tp) * n
+        ok = (ids >= 0) & (ids < n)
+        true = torch.gather(logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+        true = comm.all_reduce(torch.where(ok, true, 0.0), g)
         return torch.mean(lse - true)
 
     # -- serve --------------------------------------------------------------
 
     def prefill(self, p, ctx: MeshCtx, batch):
-        """Returns last-token logits (B, 1, V).  (Decode seeds its cache
-        through decode_step, whose cache is an explicit input.)"""
-        return self._logits(p, self._backbone(p, ctx, batch)[:, -1:])
+        """Returns last-token logits (B, 1, V), the whole vocabulary.
+        (Decode seeds its cache through decode_step, whose cache is an
+        explicit input.)"""
+        return self._whole_logits(p, ctx, self._backbone(p, ctx, batch)[:, -1:])
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, *, enc_len: int = 0,
-                   device: str | torch.device | None = None):
+                   device: str | torch.device | None = None, ctx: MeshCtx | None = None):
         """Per segment, each layer's cache on `device` (None → the card); a
-        cross-attending layer's `xk`/`xv` hold enc_len zero keys and values."""
+        cross-attending layer's `xk`/`xv` hold enc_len zero keys and values.
+        With `ctx` on a mesh, this rank's part (`init_block_cache`)."""
         return init_stack_cache(self.cfg, self.segs, batch, max_len, dtype, enc_len=enc_len,
-                                device=resolve_device(device))
+                                device=resolve_device(device), ctx=ctx)
 
     def decode_step(self, p, ctx: MeshCtx, token, cache, pos: int):
         """token (B,1) int; pos the position of the whole batch.  Returns
         (logits (B,V), cache), the cache updated in place."""
         cfg = self.cfg
-        x = self._embed(p, token)
+        x = self._embed(p, ctx, token)
         x, cache = stack_decode(p["layers"], cfg, self.segs, ctx, x, cache, pos)
         x = nn.rmsnorm(p["final_norm"], x, cfg.norm_eps)
-        return self._logits(p, x)[:, 0], cache
+        return self._whole_logits(p, ctx, x)[:, 0], cache
 
     forward = decode_step

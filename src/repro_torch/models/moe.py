@@ -1,28 +1,35 @@
-"""Mixture-of-Experts layer (counterpart of `repro.models.moe`): dropless
-token-choice top-k with SwiGLU experts and optional shared experts.
+"""Mixture-of-Experts layer (counterpart of `repro.models.moe`): token-choice
+top-k with SwiGLU experts and optional shared experts, experts parallel
+over the mesh's `model` axis as the reference's `_moe_body` runs them.
 
-The reference runs its body inside a fully manual `shard_map`, experts
-sharded over the `model` axis.  On one rank of that axis, which is all this
-slice serves (one card, or data-parallel ranks each routing its own rows
-against whole expert weights), its arithmetic is:
+Each rank of the model axis:
 
-  1. route the tokens' float32 logits with top-k (ties to the lower expert
-     id, as `lax.top_k`), softmax the k gate values, cast them to the
-     compute dtype;
-  2. sort the T·k assignments by expert, stably; the capacity `cap` is
-     T·k on one rank, so nothing drops;
-  3. per expert group, act(x·wg) * (x·wu), then ·wd, then scale by the gate
-     (the reference's `lax.ragged_dot`, here one product per group with
-     assignments, the expert's weights cast to the compute dtype one expert
-     at a time);
-  4. add the outputs back into token order in the compute dtype, each
-     token's k contributions in the order of the sorted assignments
-     (ascending expert id) and rounded after each add, as a sequential
-     scatter-add does; no atomics, so two runs give the same bits;
-  5. add the shared experts on the whole x.
+  1. all-gathers the tokens over `model` when the residual is
+     sequence-split, and gathers its experts' hidden dim over `data`
+     (FSDP) just before use;
+  2. routes the tokens' float32 logits with top-k (ties to the lower
+     expert id, as `lax.top_k`), softmaxes the k gate values and casts
+     them to the compute dtype;
+  3. keeps the assignments of its experts e0 … e0 + e_loc - 1; the others
+     fall into a dummy group e_loc;
+  4. sorts the T·k assignments by local expert, stably, and keeps the first
+     `cap` = min(T·k, max(round_up(2·T·k·e_loc/E, 128), 128)): on a model
+     axis of more ranks the tail of the last local groups drops (GShard
+     capacity dropping, counted in `drops`); on one rank cap is T·k and
+     nothing drops;
+  5. per expert group, act(x·wg) * (x·wu), then ·wd, then scales by the
+     gate (the reference's `lax.ragged_dot`, here one product per group
+     with assignments);
+  6. adds the outputs back into token order in the compute dtype, each
+     token's contributions in ascending expert id and rounded after each
+     add, as a sequential scatter-add does; no atomics, so two runs give
+     the same bits;
+  7. adds the shared experts (column- then row-parallel over `model` where
+     their hidden dim divides), and reduce-scatters the partial output over
+     the rows (all-reduces it when the rows are not split).
 
 The group sizes are data: the loop over groups reads them on the host, one
-wait per call.  A model axis of more than one rank raises.
+wait per call.
 """
 from __future__ import annotations
 
@@ -30,7 +37,6 @@ import dataclasses
 
 import torch
 
-from ..launch.mesh import mesh_axes
 from . import nn
 
 __all__ = ["MoEConfig", "moe_init", "moe_apply"]
@@ -109,52 +115,92 @@ def _experts(cfg: MoEConfig, xs, group_sizes, wg, wu, wd):
             h = act(x_e @ wg[e].to(xs.dtype)) * (x_e @ wu[e].to(xs.dtype))
             outs.append(h @ wd[e].to(xs.dtype))
             start += n
-    return torch.cat(outs) if outs else xs.new_zeros((0, wd[0].shape[1]))
+    if not outs:
+        # no rows: an empty product keeps the weights in the graph, so that
+        # every rank runs the same collectives in the backward pass (their
+        # FSDP gathers' reduce-scatters)
+        x_e = xs[:0]
+        outs.append((act(x_e @ wg[0].to(xs.dtype)) * (x_e @ wu[0].to(xs.dtype)))
+                    @ wd[0].to(xs.dtype))
+    return torch.cat(outs)
+
+
+#: Assignments dropped by the capacity rule on this process since the
+#: count was last set to 0 (a rank counts its own experts').
+drops = 0
+
+
+def _capacity(a: int, e_loc: int, n_experts: int) -> int:
+    return min(a, max(_round_up(int(a * e_loc / n_experts * 2.0), 128), 128))
 
 
 def moe_apply(p, cfg: MoEConfig, x, *, mesh=None, dp_axes=("data",), model_axis="model",
               seq_sharded=True):
-    """x: (B, S, D) → (B, S, D), in x's dtype.  `mesh`, `dp_axes` and
-    `seq_sharded` are the reference's; on one model rank the layout is the
-    caller's, and each rank computes its own rows."""
-    n_model = 1 if mesh is None else mesh_axes(mesh).get(model_axis, 1)
-    if n_model > 1:
-        from .transformer import later
-        raise later("multi-card")
-    e_loc = cfg.n_experts // n_model
-    b, s, d = x.shape
+    """x: (B, S, D) in the residual's layout — this rank's rows of the
+    sequence when `seq_sharded` on a model axis of more ranks, the whole
+    otherwise — → the same layout, in x's dtype."""
+    global drops
+    from .transformer import MeshCtx
+    ctx = MeshCtx(mesh, tuple(dp_axes), model_axis, seq_sharded and mesh is not None)
+    tp = ctx.size(model_axis)
+    if cfg.n_experts % tp:
+        raise ValueError(f"n_experts {cfg.n_experts} must divide over the model axis ({tp})")
+    e_loc = cfg.n_experts // tp
+    e0 = ctx.coord(model_axis) * e_loc
+    specs = ctx.specs(moe_init, cfg)
+    keep = (model_axis,)
+    xf = ctx.full(x)
+    b, s, d = xf.shape
     t = b * s
     k = cfg.top_k
-    xt = x.reshape(t, d)
-    gates, eids = _route(cfg, xt, p["router"])
+    xt = xf.reshape(t, d)
+    gates, eids = _route(cfg, xt, ctx.weight(p["router"], specs["router"]))
 
     flat_e = eids.reshape(-1)
     flat_tok = torch.arange(t * k, device=x.device) // k
-    a = t * k
-    cap = min(a, max(_round_up(int(a * e_loc / cfg.n_experts * 2.0), 128), 128))
-    order = torch.argsort(flat_e, stable=True)[:cap]
-    xs = xt[flat_tok[order]]                               # (cap, D)
-    gs = gates.reshape(-1)[order]
-    counts = torch.zeros(e_loc, dtype=flat_e.dtype, device=x.device).scatter_add_(
-        0, flat_e, torch.ones_like(flat_e))
+    local = (flat_e >= e0) & (flat_e < e0 + e_loc)
+    le = torch.where(local, flat_e - e0, e_loc)  # dummy group = e_loc
+    cap = _capacity(t * k, e_loc, cfg.n_experts)
+    order = torch.argsort(le, stable=True)[:cap]
+    counts = torch.zeros(e_loc + 1, dtype=le.dtype, device=x.device).scatter_add_(
+        0, le, torch.ones_like(le))
+    # a dry run (meta tensors, `launch.dryrun`) routes no rows
     # repro-lint: disable=host-sync -- the group sizes steer the per-expert loop: one wait per call
-    sizes = counts.tolist()
-    ys = _experts(cfg, xs, sizes, p["wg"], p["wu"], p["wd"]) * gs[:, None]
+    counts = [0] * e_loc if counts.is_meta else counts.tolist()[:e_loc]
+    sizes, kept = [], 0
+    for n in counts:
+        sizes.append(min(kept + n, cap) - kept)
+        kept += sizes[-1]
+    drops += sum(counts) - kept
+    order = order[:kept]
+    xs = xt[flat_tok[order]]                               # (kept, D)
+    gs = gates.reshape(-1)[order]
+    w = {name: ctx.weight(p[name], specs[name], keep) for name in ("wg", "wu", "wd")}
+    ys = _experts(cfg, xs, sizes, w["wg"], w["wu"], w["wd"]) * gs[:, None]
 
-    # Back to token order.  inv[i] is where slot i of (T, k) went in the
-    # sorted order; the sort is stable by expert and a token's k experts
-    # are distinct, so a token's positions in ascending order are its
-    # experts in ascending order: add them in turn.
-    inv = torch.argsort(order)
-    pos, _ = torch.sort(inv.reshape(t, k), dim=-1)
-    out = ys[pos]                                          # (T, k, D)
-    acc = out[:, 0]
+    # Back to token order: slot (token, j) of the (T, k) assignments holds
+    # its output (zero where dropped or another rank's), and a token's k
+    # slots are added in ascending expert id, one rounding per add.
+    slots = ys.new_zeros((t * k, d)).index_put((order,), ys).reshape(t, k, d)
+    slots = torch.gather(slots, 1, torch.argsort(eids, dim=-1)[..., None].expand(t, k, d))
+    acc = slots[:, 0]
     for j in range(1, k):
-        acc = acc + out[:, j]
+        acc = acc + slots[:, j]
     out = acc.reshape(b, s, d)
 
+    shared = None
     if cfg.n_shared_experts:
+        split = tp > 1 and (cfg.d_ff * cfg.n_shared_experts) % tp == 0
+        sw = {name: ctx.weight(p[name], specs[name], keep if split else ())
+              for name in ("shared_wg", "shared_wu", "shared_wd")}
         act = _act(cfg.act)
-        h = act(x @ p["shared_wg"].to(x.dtype)) * (x @ p["shared_wu"].to(x.dtype))
-        out = out + h @ p["shared_wd"].to(x.dtype)
-    return out
+        src_x = xf if tp > 1 else x
+        h = act(src_x @ sw["shared_wg"].to(x.dtype)) * (src_x @ sw["shared_wu"].to(x.dtype))
+        shared = h @ sw["shared_wd"].to(x.dtype)
+        if split:
+            out, shared = out + shared, None
+    if tp > 1:
+        out = ctx.land(out, True)
+        if shared is not None:
+            shared = ctx.resid(shared)
+    return out if shared is None else out + shared

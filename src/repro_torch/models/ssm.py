@@ -11,6 +11,15 @@ as the reference's do (log-depth, no loop over time).  With `remat` and
 autograd on, each chunk runs under `torch.utils.checkpoint`, as the
 reference wraps its chunk step in `jax.checkpoint`.  Decode is one O(1)
 state update.
+
+On a model axis of tp ranks that d_inner divides, Mamba is channel-parallel
+(`mamba_local`): rank r runs channels [r·d_inner/tp, (r+1)·d_inner/tp) of u
+and of z (cut from the gathered `in_proj`, whose resolved block is a slice
+of the concatenated [u | z] columns, not the rank's channels), its blocks
+of the per-channel leaves (`conv_w`, `conv_b`, `dt_proj`, `dt_bias`,
+`a_log`, `d_skip`) and of `out_proj`'s rows; `x_proj` contracts over the
+split channels, so dt, B and C are summed over the axis (`psum`), and the
+output is a partial product the block reduces.
 """
 from __future__ import annotations
 
@@ -21,10 +30,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from . import nn
+from . import comm, nn
 
 __all__ = ["MambaConfig", "mamba_init", "mamba_apply", "mamba_decode", "init_mamba_cache",
-           "associative_scan"]
+           "associative_scan", "mamba_local"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,10 +112,13 @@ def _combine(left, right):
     return [left[0] * right[0], left[1] * right[0] + right[1]]
 
 
-def _ssm_inputs(p, cfg: MambaConfig, u):
-    """u (B,S,di) post-conv. Returns dA (B,S,di,N), dBu (B,S,di,N), C (B,S,N)."""
+def _ssm_inputs(p, cfg: MambaConfig, u, psum=None):
+    """u (B,S,di) post-conv. Returns dA (B,S,di,N), dBu (B,S,di,N), C (B,S,N).
+    With `psum` (channel-parallel) the x_proj product is this rank's
+    float32 share, summed over the axis and cast to u's dtype."""
     r, n = cfg.dt_rank_, cfg.d_state
-    proj = u @ p["x_proj"].to(u.dtype)
+    proj = (u @ p["x_proj"].to(u.dtype) if psum is None
+            else psum(u.float() @ p["x_proj"].float()).to(u.dtype))
     dt, b_ssm, c = torch.split(proj, [r, n, n], dim=-1)
     dt = nn.softplus(dt @ p["dt_proj"].to(u.dtype) + p["dt_bias"].to(u.dtype))
     a = -torch.exp(p["a_log"].float())  # (di, N)
@@ -127,10 +139,10 @@ def _conv(p, cfg: MambaConfig, x, conv_state=None):
     return out + p["conv_b"].to(x.dtype), xp[:, -(k - 1):]
 
 
-def _chunk_step(p, cfg: MambaConfig, h, u_k):
+def _chunk_step(p, cfg: MambaConfig, h, u_k, psum=None):
     """One chunk: discretise it, scan it from h.  Returns (the chunk's last
     state, y (B,cc,di) float32)."""
-    da, dbu, c = _ssm_inputs(p, cfg, u_k)
+    da, dbu, c = _ssm_inputs(p, cfg, u_k, psum)
     a_acc, b_acc = associative_scan(_combine, [da, dbu], dim=1)
     hs = a_acc * h[:, None] + b_acc
     y = torch.einsum("bsdn,bsn->bsd", hs, c.float())
@@ -138,9 +150,10 @@ def _chunk_step(p, cfg: MambaConfig, h, u_k):
 
 
 def mamba_apply(p, cfg: MambaConfig, x, *, h0=None, conv_state=None, return_state=False,
-                remat: bool = False):
+                remat: bool = False, psum=None):
     """x (B,S,D) → (B,S,D).  Chunked selective scan; with `remat` and
-    autograd on, each chunk is recomputed in the backward pass."""
+    autograd on, each chunk is recomputed in the backward pass.  `p` may
+    be a rank's channels (`mamba_local`, which gives `psum`)."""
     b, s, _ = x.shape
     xz = x @ p["in_proj"].to(x.dtype)
     u, z = torch.chunk(xz, 2, dim=-1)
@@ -150,12 +163,12 @@ def mamba_apply(p, cfg: MambaConfig, x, *, h0=None, conv_state=None, return_stat
     cc = min(cfg.scan_chunk, s)
     pad = (-s) % cc
     u_p = F.pad(u, (0, 0, 0, pad)) if pad else u
-    h = (torch.zeros((b, cfg.d_inner, cfg.d_state), dtype=torch.float32, device=x.device)
+    h = (torch.zeros((b, u.shape[-1], cfg.d_state), dtype=torch.float32, device=x.device)
          if h0 is None else h0)
     remat = remat and torch.is_grad_enabled()
     ys = []
     for start in range(0, s + pad, cc):
-        args = (p, cfg, h, u_p[:, start:start + cc])
+        args = (p, cfg, h, u_p[:, start:start + cc], psum)
         h, y_k = (checkpoint(_chunk_step, *args, use_reentrant=False, preserve_rng_state=False)
                   if remat else _chunk_step(*args))
         ys.append(y_k)
@@ -170,23 +183,43 @@ def mamba_apply(p, cfg: MambaConfig, x, *, h0=None, conv_state=None, return_stat
 
 
 def init_mamba_cache(cfg: MambaConfig, batch: int, dtype=torch.bfloat16, *,
-                     device: torch.device):
+                     device: torch.device, width: int | None = None):
+    """The state of `width` channels (None: all d_inner)."""
+    di = width or cfg.d_inner
     return {
-        "h": torch.zeros((batch, cfg.d_inner, cfg.d_state), dtype=torch.float32, device=device),
-        "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner), dtype=dtype, device=device),
+        "h": torch.zeros((batch, di, cfg.d_state), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.d_conv - 1, di), dtype=dtype, device=device),
     }
 
 
-def mamba_decode(p, cfg: MambaConfig, x, cache):
+def mamba_decode(p, cfg: MambaConfig, x, cache, psum=None):
     """Single-token step. x (B,1,D) → (B,1,D), new cache."""
     xz = x @ p["in_proj"].to(x.dtype)
     u, z = torch.chunk(xz, 2, dim=-1)
     u, conv_state = _conv(p, cfg, u, cache["conv"])
     u = nn.silu(u)
-    da, dbu, c = _ssm_inputs(p, cfg, u)  # S=1
+    da, dbu, c = _ssm_inputs(p, cfg, u, psum)  # S=1
     h = cache["h"] * da[:, 0] + dbu[:, 0]
     y = torch.einsum("bdn,bn->bd", h, c[:, 0].float())[:, None]
     y = y + u.float() * p["d_skip"].float()
     y = y.to(x.dtype) * nn.silu(z)
     out = y @ p["out_proj"].to(x.dtype)
     return out, {"h": h, "conv": conv_state.to(cache["conv"].dtype)}
+
+
+def mamba_local(p, cfg: MambaConfig, ctx):
+    """(weights, psum, partial) of this rank of the model axis: its channels
+    (partial True, `psum` the sum over the axis) when d_inner divides over
+    it, else the whole weights (psum None, partial False)."""
+    specs = ctx.specs(mamba_init, cfg)
+    tp = ctx.size(ctx.tp)
+    di = cfg.d_inner
+    if tp == 1 or di % tp:
+        return ctx.weights(p, specs), None, False
+    n = di // tp
+    c0 = ctx.coord(ctx.tp) * n
+    w = ctx.weights({k: v for k, v in p.items() if k != "in_proj"}, specs, keep=(ctx.tp,))
+    in_proj = ctx.weight(p["in_proj"], specs["in_proj"])
+    w["in_proj"] = torch.cat([in_proj[:, c0:c0 + n], in_proj[:, di + c0:di + c0 + n]], dim=1)
+    group = ctx.group(ctx.tp)
+    return w, (lambda t: comm.all_reduce(t, group)), True

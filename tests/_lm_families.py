@@ -151,9 +151,9 @@ def _hidden_seen(lm) -> list:
     """Record every hidden state the port's `_logits` is given."""
     seen, logits = [], lm._logits
 
-    def record(p, x):
+    def record(p, x, *ctx):
         seen.append(_np(x))
-        return logits(p, x)
+        return logits(p, x, *ctx)
     lm._logits = record
     return seen
 

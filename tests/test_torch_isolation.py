@@ -27,6 +27,7 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.launch.steps, repro_torch.examples.serve_lm\n"
         "import repro_torch.optim, repro_torch.checkpoint, repro_torch.launch.elastic\n"
         "import repro_torch.models.moe, repro_torch.models.ssm, repro_torch.models.xlstm\n"
+        "import repro_torch.launch.shardings, repro_torch.launch.dryrun, repro_torch.bench.tp\n"
         "from repro_torch.launch.steps import make_train_step, init_opt_shapes\n"
         "assert not repro_torch.kernels._build._libs  # nothing built on import\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"

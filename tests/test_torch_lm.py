@@ -102,9 +102,9 @@ def _hidden_seen(lm) -> list:
     """Record every hidden state the port's `_logits` is given."""
     seen, logits = [], lm._logits
 
-    def record(p, x):
+    def record(p, x, *ctx):
         seen.append(_np(x))
-        return logits(p, x)
+        return logits(p, x, *ctx)
     lm._logits = record
     return seen
 
@@ -458,15 +458,26 @@ def test_serve_lm_without_a_card_exits_1(monkeypatch, capsys):
 
 
 def test_mesh_of_more_ranks_raises():
-    """A model axis of more than one rank raises; data-parallel ranks (a
-    model axis of one) hold whole activations, so no constraint applies."""
-    class Mesh:
-        mesh_dim_names = ("data", "model")
-
-        def __init__(self, shape):
-            self.shape = shape
-    x = torch.ones(2)
-    assert MeshCtx(mesh=None).shard(x, "data") is x
-    assert MeshCtx(mesh=Mesh((2, 1))).resid(x) is x
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        MeshCtx(mesh=Mesh((1, 2))).resid(x)
+    """The residual's layouts on a model axis of two ranks (a dry mesh:
+    collectives of the right shape that move nothing): `resid` keeps this
+    rank's rows, `full` gathers them back, and a partial product lands by
+    reduce-scatter (all-reduce when the rows are not split); a length the
+    axis does not divide stays whole.  Without a mesh, or on a model axis
+    of one rank, every method is the identity."""
+    from repro_torch.launch.dryrun import DryMesh
+    x = torch.ones((2, 6, 4))
+    assert MeshCtx(mesh=None).resid(x) is x and MeshCtx(mesh=None).full(x) is x
+    one = MeshCtx(mesh=DryMesh({"data": 2, "model": 1}))
+    assert one.resid(x) is x and one.land(x, True) is x and one.for_seq(6).seq_sharded is False
+    ctx = MeshCtx(mesh=DryMesh({"data": 1, "model": 2}))
+    assert ctx.size("model") == 2 and ctx.coord("model") == 0
+    split = ctx.for_seq(6)
+    assert split.seq_sharded and tuple(split.resid(x).shape) == (2, 3, 4)
+    assert torch.equal(split.resid(x), x[:, :3])
+    assert tuple(split.full(split.resid(x)).shape) == (2, 6, 4)
+    assert tuple(split.land(x, True).shape) == (2, 3, 4)
+    whole = ctx.for_seq(5)
+    assert not whole.seq_sharded and whole.resid(x) is x
+    assert tuple(whole.land(x, True).shape) == (2, 6, 4)
+    with pytest.raises(ValueError, match="does not split"):
+        split.land(torch.ones((2, 5, 4)), True)

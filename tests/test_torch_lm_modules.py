@@ -230,13 +230,25 @@ def test_moe_backward_matches_reference(trivial_mesh):
 
 
 def test_moe_on_a_model_axis_of_more_ranks_raises():
-    class Mesh:
-        mesh_dim_names = ("data", "model")
-        shape = (1, 2)
-    rcfg, cfg = _moe_cfgs(1, 0)
-    p = _carry(rmoe.moe_init(jax.random.key(0), rcfg)[0])
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        moe.moe_apply(p, cfg, torch.ones((1, 2, 32)), mesh=Mesh())
+    """On a model axis of two ranks (a dry mesh of meta tensors) a rank
+    holds 4 of the 8 experts and gives its output in the layout of its
+    input (its rows of the sequence, or the whole rows); experts that do
+    not divide over the axis raise, as the reference asserts.  The
+    two-rank arithmetic, capacity drops included, is held to the
+    reference's (2, 4) mesh in tests/test_torch_tp.py."""
+    from repro_torch.launch.dryrun import DryMesh
+    rcfg, cfg = _moe_cfgs(2, 1)
+    mesh = DryMesh({"data": 1, "model": 2})
+    p = {k: torch.empty(((v.shape[0] // 2,) + tuple(v.shape[1:])) if k in ("wg", "wu", "wd")
+                        else tuple(v.shape), device="meta")
+         for k, v in rmoe.moe_init(jax.random.key(0), rcfg)[0].items()}
+    for seq_sharded in (True, False):
+        out = moe.moe_apply(p, cfg, torch.empty((1, 2, 32), device="meta"), mesh=mesh,
+                            seq_sharded=seq_sharded)
+        assert tuple(out.shape) == (1, 2, 32) and out.is_meta
+    _, odd = _moe_cfgs(2, 0, n_experts=3)
+    with pytest.raises(ValueError, match="must divide"):
+        moe.moe_apply(p, odd, torch.empty((1, 2, 32), device="meta"), mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

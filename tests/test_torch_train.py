@@ -544,7 +544,7 @@ _RANK_WORKER = textwrap.dedent("""
     from repro_torch.checkpoint import save_checkpoint
     from repro_torch.data import SyntheticTokens
     from repro_torch.launch import make_local_mesh
-    from repro_torch.launch.steps import make_ctx, make_train_step
+    from repro_torch.launch.steps import make_ctx, make_train_step, param_specs, state_shardings
     from repro_torch.models import LM
     from repro_torch.optim import AdamWConfig, adamw_init, cp_compress_state, cp_compressed_mean
     res = {}
@@ -560,16 +560,18 @@ _RANK_WORKER = textwrap.dedent("""
     mesh = make_local_mesh(device="cpu")
     cfg = configs.get_smoke_config(%(arch)r)
     lm = LM(cfg)
-    params, _ = lm.init(torch.Generator("cpu").manual_seed(0))
+    params, _ = lm.init(torch.Generator("cpu").manual_seed(0), mesh=mesh)  # FSDP blocks
     opt_cfg = AdamWConfig(lr=1e-3)
-    opt = adamw_init(params, opt_cfg)
-    step = make_train_step(lm, make_ctx(mesh, seq_sharded=False), opt_cfg)
+    ctx = make_ctx(mesh, seq_sharded=False)
+    opt = adamw_init(params, opt_cfg, specs=param_specs(lm, ctx), mesh=mesh)
+    step = make_train_step(lm, ctx, opt_cfg)
     batch = {"tokens": torch.from_numpy(SyntheticTokens(cfg.vocab, %(seq)d, %(batch)d).batch(0))}
     res["losses"] = []
     for _ in range(2):
         params, opt, loss = step(params, opt, batch)
         res["losses"].append(float(loss))
-    save_checkpoint(ckpt, 2, {"params": params, "opt": opt})
+    save_checkpoint(ckpt, 2, {"params": params, "opt": opt},
+                    shardings=state_shardings(lm, mesh, opt_cfg), mesh=mesh)
     res["mesh"] = list(mesh.shape)
     dist.barrier()
     json.dump(res, open(out + "." + str(rank) + ".json", "w"))
@@ -654,8 +656,21 @@ def test_elastic_resume_from_two_ranks_to_one(two_ranks):
 
 
 def test_elastic_restore_without_a_checkpoint_and_on_a_model_axis(tmp_path):
+    """No checkpoint: None, and no group is made.  A model axis of two
+    ranks asks for two: one process that has a checkpoint refuses to make
+    a (1, 2) mesh of itself alone (the multi-rank resume, onto a model
+    axis of two from a (4, 2) mesh, is tests/test_torch_tp.py's)."""
     lm = LM(configs.get_smoke_config(ELASTIC_ARCH))
     assert elastic.elastic_restore(lm, str(tmp_path), AdamWConfig(), device="cpu") is None
+    assert elastic.elastic_restore(lm, str(tmp_path), AdamWConfig(), n_model=2,
+                                   device="cpu") is None
     assert not dist.is_initialized()
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        elastic.elastic_restore(lm, str(tmp_path), AdamWConfig(), n_model=2, device="cpu")
+    params, _ = lm.init(torch.Generator("cpu").manual_seed(0))
+    checkpoint.save_checkpoint(str(tmp_path), 1, {"params": params,
+                                                  "opt": adamw_init(params, AdamWConfig())})
+    try:
+        with pytest.raises(ValueError, match="mesh needs 2 ranks"):
+            elastic.elastic_restore(lm, str(tmp_path), AdamWConfig(), n_model=2, device="cpu")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
