@@ -219,10 +219,20 @@ Phases, each fatal on failure:
      none of the three kernels (checked: 0 launches): the five smoke
      configs of 4l, one set of weights each, two steps of grad_accum 2 at
      float32 compute on the card and on the CPU, with float32 and with
-     8-bit moments (tolerances at TRAIN_LOSS_REL below); gemma3-4b at full width (float32
-     weights, bfloat16 compute, remat on) with 8-bit moments,
-     AdamWConfig(lr=1e-4, use_8bit=True), on one `SyntheticTokens` batch
-     (seed 0, batch 4, sequence 256, grad_accum 2): 1 warm-up step, 3 timed
+     8-bit moments (tolerances at TRAIN_LOSS_REL below); the step's
+     lookups whose backward adds into a gradient (`train_sites`: the
+     embedding and the MoE's gather of each token's k rows through
+     `F.embedding`, the mLSTM's stabiliser through `xlstm._cummax`, and the
+     gathers of the MoE's gates and slots and of the loss, whose indices do
+     not repeat), each backward run three times at 4t's shapes and held bit
+     for bit to its first, beside the indexing the first three replaced;
+     gemma3-4b at full width (float32 weights, bfloat16 compute, remat on)
+     with 8-bit moments, AdamWConfig(lr=1e-4, use_8bit=True), on one
+     `SyntheticTokens` batch (seed 0, batch 4, sequence 256, grad_accum
+     2): the first step taken twice from one state (`first_step_twice`,
+     the copy in pinned host memory), the two losses equal and every
+     parameter and moment leaf `torch.equal`, each state's checksum
+     printed (so in every `train_run` below), 3 timed
      (host clock around `torch.cuda.synchronize`) and one under
      `torch.profiler` (the device's busy share, the top device ops, the
      launch count), printing ms per step, trained tokens/s, the losses, the
@@ -234,9 +244,10 @@ Phases, each fatal on failure:
      while the next step runs, then `elastic_restore` into meta structure:
      bit for bit the snapshot, and the next step's loss equal to the live
      run's; then xlstm-350m whole with float32 moments and
-     qwen3-moe-30b-a3b cut to 4 layers with 8-bit moments, 1 warm-up and 3
-     timed steps each (ms per step, tokens/s, the FLOP bound over the
-     parameters a token uses, the losses, which must fall); then
+     qwen3-moe-30b-a3b cut to 4 layers with 8-bit moments, the first step
+     twice and 3 timed steps each (ms per step, tokens/s, the FLOP bound
+     over the parameters a token uses, the losses, which must fall: the
+     last below the first, in every `train_run`); then
      whisper-medium (batch 4 × 1,500 frames, 187 decoder tokens) and
      internvl2-1b (batch 4 × (256 image + 256 text tokens)) whole with
      float32 moments, the same way, their FLOP bound each weight times the
@@ -312,6 +323,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -342,6 +354,7 @@ from repro_torch.models import LM, MeshCtx  # noqa: E402
 from repro_torch.models import comm as comm_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import nn as lm_nn  # noqa: E402
+from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.core.mttkrp import _alto_decode  # noqa: E402
 from repro_torch.engine.calibrate import MIN_OBSERVATIONS  # noqa: E402
 from repro_torch.obs import capture  # noqa: E402
@@ -2169,6 +2182,11 @@ TRAIN_Q8_SHARE, TRAIN_SCALE_RTOL = 1e-3, 1 / 127
 # terms summed in another order, and another QR), q within 1e-3 of its
 # largest entry up to the sign of each column.
 TRAIN_CP_TOL, TRAIN_CP_Q_TOL = 1e-4, 1e-3
+# The train step's lookups whose backward adds into a gradient (train_sites):
+# each backward run TRAIN_SITE_RUNS times from the same inputs, and timed
+# over TRAIN_SITE_REPS calls.
+TRAIN_SITE_RUNS, TRAIN_SITE_REPS = 3, 20
+CHECKSUM_WORDS = 1 << 26           # int32 words a state_checksum pass widens at once
 
 
 def train_tree_gap(got, want) -> tuple[float, float]:
@@ -2235,6 +2253,144 @@ def train_card_vs_cpu(device, arch: str = LM_ARCH) -> None:
         if not ok:
             fail(f"phase 4t: the smoke config's train steps on the card left the CPU's "
                  f"({'8-bit' if use_8bit else 'float32'} moments)")
+
+
+def train_sites(device) -> None:
+    """Each lookup of the train step whose backward adds into a gradient,
+    at 4t's shapes on the card (one micro-batch): gemma3-4b's embedding and
+    its loss's gather, xlstm-350m's stabiliser (`xlstm._cummax`), and
+    qwen3-moe-30b-a3b's gathers of each token's k rows, of the gates and of
+    the slots.  Each backward runs TRAIN_SITE_RUNS times from the same
+    inputs and upstream gradient, each against the first bit for bit, and
+    one forward and backward is timed (CUDA events).  The three lookups the
+    step now makes through `F.embedding` and `_cummax` run beside the
+    indexing they replaced (`w[rows]`, `torch.cummax`), in turns; whether
+    that repeats is printed, not required.  Fatal unless every backward the
+    step runs repeats."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device).manual_seed(0)
+
+    def normal(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=device).to(dtype).requires_grad_()
+    cfg, xcfg, mcfg = get_config(LM_ARCH), get_config("xlstm-350m"), get_config(
+        "qwen3-moe-30b-a3b")
+    b = TRAIN_BATCH // TRAIN_ACCUM
+    tok = torch.from_numpy(SyntheticTokens(cfg.vocab, TRAIN_SEQ, b).batch(0)).to(device)
+    table, logits = normal(cfg.vocab, cfg.d_model), normal(b, TRAIN_SEQ, cfg.vocab)
+    a = normal(b, xcfg.n_heads, TRAIN_SEQ)
+    t, k = b * TRAIN_SEQ, mcfg.top_k
+    xt = normal(t, mcfg.d_model, dtype=torch.bfloat16)
+    gates, slots = normal(t, k, dtype=torch.bfloat16), normal(t, k, mcfg.d_model,
+                                                             dtype=torch.bfloat16)
+    with torch.no_grad():
+        eids = torch.topk(torch.randn(t, mcfg.n_experts, generator=g, device=device), k).indices
+    order = torch.argsort(eids.reshape(-1), stable=True)   # by expert, as moe_apply sorts
+    rows = order // k                                      # flat_tok[order]
+    by_id = torch.argsort(eids, dim=-1)[..., None].expand(t, k, mcfg.d_model)
+    sites = [  # (name, the step's forward, its input, the indexing it replaced)
+        ("embedding", lambda: F.embedding(tok, table), table, lambda: table[tok]),
+        ("stabiliser", lambda: xlstm_mod._cummax(a, 2), a, lambda: torch.cummax(a, 2).values),
+        ("MoE rows", lambda: F.embedding(rows, xt), xt, lambda: xt[rows]),
+        ("MoE gates", lambda: gates.reshape(-1)[order], gates, None),
+        ("MoE slots", lambda: torch.gather(slots, 1, by_id), slots, None),
+        ("loss", lambda: torch.gather(logits, -1, tok[..., None]), logits, None),
+    ]
+    bad = []
+    for name, fwd, x, replaced in sites:
+        out = fwd()
+        up = torch.randn(out.shape, generator=g, device=device).to(out.dtype)
+        del out
+
+        def backward(f=fwd, x=x, up=up):
+            return torch.autograd.grad(f(), x, up)[0]
+
+        def repeats(bwd):
+            first = bwd()
+            gaps = [float((bwd().float() - first.float()).abs().max())
+                    for _ in range(TRAIN_SITE_RUNS - 1)]
+            return first, gaps
+        got, gaps = repeats(backward)
+        line = (f"{name} {tuple(x.shape)} {str(x.dtype).removeprefix('torch.')}: the step's "
+                f"backward, {TRAIN_SITE_RUNS} runs, max |Δ| from the first {gaps}")
+        if replaced is None:
+            line += f"; {time_ms(backward, TRAIN_SITE_REPS):.4f} ms forward and backward"
+        else:
+            def old_backward(f=replaced, x=x, up=up):
+                return torch.autograd.grad(f(), x, up)[0]
+            old, old_gaps = repeats(old_backward)
+            ms = [time_ms(f, TRAIN_SITE_REPS)
+                  for f in (old_backward, backward, backward, old_backward)]
+            line += (f"; the indexing it replaced: max |Δ| from its first {old_gaps}, from the "
+                     f"step's {float((old.float() - got.float()).abs().max()):.3e}; ms forward "
+                     f"and backward, in turns (replaced, step's, step's, replaced) "
+                     f"{[round(m, 4) for m in ms]}")
+            del old
+        log(f"[4t] site {line}")
+        if any(gaps):
+            bad.append(name)
+        del got
+    log(f"[4t] the sites took {time.perf_counter() - t0:.1f}s")
+    if bad:
+        fail(f"phase 4t: the backward of {bad} does not repeat bit for bit on the card")
+
+
+def state_checksum(tree) -> str:
+    """A checksum of a tree's bits: each leaf's bytes as int32 words (zero
+    padded), weighted by 1 + (i·2654435761 mod 2^31) at word i and summed
+    modulo 2^64, the leaves folded in `tree_leaves`' order."""
+    h = 0
+    for leaf in lm_nn.tree_leaves(tree):
+        raw = leaf.detach().reshape(-1).view(torch.uint8)
+        if raw.numel() % 4:
+            raw = torch.cat([raw, raw.new_zeros(-raw.numel() % 4)])
+        words = raw.view(torch.int32)
+        total = 0
+        for i in range(0, words.numel(), CHECKSUM_WORDS):
+            w = words[i:i + CHECKSUM_WORDS].long()
+            place = torch.arange(i, i + w.numel(), device=w.device) * 2654435761 % 2**31 + 1
+            total += int((w * place).sum())
+        h = (h * 1000003 + total) % 2**64
+    return f"{h:016x}"
+
+
+def first_step_twice(step, params, opt, batch, tag: str):
+    """The first train step taken twice from the same params and optimizer
+    state: fatal unless the two losses are equal and every parameter and
+    moment leaf is `torch.equal`.  Prints a checksum of each state after
+    the step.  The state's copy lives in pinned host memory (gemma3-4b's
+    full-width state, 22 GiB, does not fit twice beside its step), released
+    afterwards; after the first step it swaps, one leaf at a time, with the
+    state, which so starts the second step from the copy while the copy
+    keeps the first step's result.  Returns (params, opt, loss) after the
+    step."""
+    def keep(a):
+        return torch.empty(a.shape, dtype=a.dtype, pin_memory=True).copy_(a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    copy = lm_nn.tree_map(keep, (params, opt))
+    params, opt, loss = step(params, opt, batch)
+    first = (float(loss), state_checksum((params, opt)))
+    leaves = list(zip(lm_nn.tree_leaves((params, opt)), lm_nn.tree_leaves(copy), strict=True))
+    with torch.no_grad():
+        for live, kept in leaves:
+            stepped = live.clone()
+            live.copy_(kept)
+            kept.copy_(stepped)
+            del stepped
+    params, opt, loss = step(params, opt, batch)
+    again = (float(loss), state_checksum((params, opt)))
+    n_equal = sum(bool(torch.equal(live, kept.to(live.device))) for live, kept in leaves)
+    del copy, leaves
+    torch._C._host_emptyCache()   # hand the pinned pages back to the host
+    torch.cuda.synchronize()
+    n_leaves = len(lm_nn.tree_leaves((params, opt)))
+    log(f"[4t]   {tag}: the first step twice from one state: losses {first[0]!r}, "
+        f"{again[0]!r}; checksums "
+        f"{first[1]}, {again[1]}; {n_equal} of {n_leaves} parameter and moment leaves equal; "
+        f"{time.perf_counter() - t0:.1f}s")
+    if first != again or n_equal != n_leaves:
+        fail(f"phase 4t: {tag}: the first train step is not reproducible bit for bit")
+    return params, opt, loss
 
 
 def active_params(cfg, params) -> int:
@@ -2348,11 +2504,13 @@ def train_run(cfg, opt_cfg, device, smi_line: str, tag: str, *, profiled: bool,
               seq: int = TRAIN_SEQ):
     """Train `cfg` from `torch.Generator` seed 0 on the card on one
     `SyntheticBatches` batch of seq_len `seq` (seed 0; `SyntheticTokens`'
-    for a decoder-only arch): TRAIN_WARMUP steps, then TRAIN_TIMED timed
-    ones (and one under the profiler).  Prints ms per step, tokens/s, the
-    losses, the peak memory above what was resident, the FLOP bound of the
-    step and the bytes bound of its optimizer pass.  Returns (lm, params,
-    opt)."""
+    for a decoder-only arch): the first step (the warm-up) taken twice from
+    one state (`first_step_twice`), then TRAIN_TIMED timed steps (and one under the profiler).  Prints ms
+    per step, tokens/s, the losses, the peak memory above what was resident
+    (the first step's copies left out), the FLOP bound of the step and the
+    bytes bound of its optimizer pass.  Fatal if the first step does not
+    repeat bit for bit, if a loss is not finite, or unless the last loss is
+    below the first.  Returns (lm, params, opt)."""
     lm = LM(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2362,20 +2520,22 @@ def train_run(cfg, opt_cfg, device, smi_line: str, tag: str, *, profiled: bool,
     n_params = lm_nn.param_count(params)
     batch = arch_batch(cfg, seq, TRAIN_BATCH, device)
     step = make_train_step(lm, MeshCtx(mesh=None), opt_cfg, grad_accum=TRAIN_ACCUM)
-    losses, step_s = [], []
-    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+    init_peak = torch.cuda.max_memory_allocated()
+    params, opt, loss = first_step_twice(step, params, opt, batch, f"{cfg.name} {tag}")
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [float(loss)], []
+    for _ in range(TRAIN_TIMED):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, opt, loss = step(params, opt, batch)
         torch.cuda.synchronize()
-        if i >= TRAIN_WARMUP:
-            step_s.append(time.perf_counter() - t0)
+        step_s.append(time.perf_counter() - t0)
         losses.append(float(loss))
     prof = None
     if profiled:
         prof, loss = profile_step(step, params, opt, batch)
         losses.append(float(loss))
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(init_peak, torch.cuda.max_memory_allocated())
     step_ms = 1e3 * sum(step_s) / len(step_s)
     n_active = active_params(cfg, params)
     rows = {k: v.shape[0] * v.shape[1] for k, v in batch.items()}
@@ -2512,6 +2672,9 @@ def train_checks(device, smi_line: str) -> None:
     # families'.
     for arch in (LM_ARCH, *LM_FAMILIES, *LM_ENCDEC):
         train_card_vs_cpu(device, arch)
+    # 1b. The lookups whose backward adds into a gradient, each repeated.
+    train_sites(device)
+    torch.cuda.empty_cache()
     # 2. Full width, 8-bit moments, with a profiled step.
     cfg = get_config(LM_ARCH)
     train_run(cfg, AdamWConfig(lr=TRAIN_LR, use_8bit=True), device, smi_line,
@@ -2520,12 +2683,12 @@ def train_checks(device, smi_line: str) -> None:
     # 3. Float32 moments at full width, the depth cut to one pattern; its
     # gradient for 5.
     cfg6 = dataclasses.replace(cfg, n_layers=TRAIN_F32_LAYERS)
-    lm6, params6, _ = train_run(cfg6, AdamWConfig(lr=TRAIN_LR), device, smi_line,
+    lm6, params6, opt6 = train_run(cfg6, AdamWConfig(lr=TRAIN_LR), device, smi_line,
                                 f"float32 moments, depth cut to {TRAIN_F32_LAYERS} layers",
                                 profiled=False)
     # 5. CP compression on the card.
     train_cp_compress(lm6, params6, device)
-    del lm6, params6
+    del lm6, params6, opt6   # its float32 moments are 9.2 GiB
     torch.cuda.empty_cache()
     # 4. Checkpoint and resume.
     train_checkpoint(device)

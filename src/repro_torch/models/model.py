@@ -23,6 +23,7 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import comm, nn
 from .moe import MoEConfig
@@ -175,7 +176,9 @@ class LM(torch.nn.Module):
     def _embed(self, p, ctx: MeshCtx, tokens):
         """Rows of the table in the compute dtype, then the sqrt(d_model)
         scale.  A vocabulary split over the model axis is looked up by each
-        rank in its block (other rows zero) and summed over the axis."""
+        rank in its block (other rows zero) and summed over the axis.  The
+        lookup is `F.embedding`, whose CUDA backward sums a row's repeats
+        in a fixed order (indexing's would add them with atomics)."""
         cfg = self.cfg
         spec, split = self._vocab_spec(ctx, False)
         w = p["embed"]["w"] if spec is None else ctx.weight(p["embed"]["w"], spec, (ctx.tp,))
@@ -183,10 +186,10 @@ class LM(torch.nn.Module):
             n = w.shape[0]
             ids = tokens.long() - ctx.coord(ctx.tp) * n
             ok = (ids >= 0) & (ids < n)
-            x = torch.where(ok[..., None], w[ids.clamp(0, n - 1)].to(cfg.cdtype), 0)
+            x = torch.where(ok[..., None], F.embedding(ids.clamp(0, n - 1), w).to(cfg.cdtype), 0)
             x = comm.all_reduce(x, ctx.group(ctx.tp))
         else:
-            x = w[tokens].to(cfg.cdtype)
+            x = F.embedding(tokens, w).to(cfg.cdtype)
         if cfg.scale_embed:
             x = x * nn.weak(math.sqrt(cfg.d_model), x.dtype)
         return x

@@ -36,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from . import nn
 
@@ -173,7 +174,9 @@ def moe_apply(p, cfg: MoEConfig, x, *, mesh=None, dp_axes=("data",), model_axis=
         kept += sizes[-1]
     drops += sum(counts) - kept
     order = order[:kept]
-    xs = xt[flat_tok[order]]                               # (kept, D)
+    # a token's k rows through `F.embedding`: its CUDA backward adds them
+    # in a fixed order (indexing's would add them with atomics)
+    xs = F.embedding(flat_tok[order], xt)                  # (kept, D)
     gs = gates.reshape(-1)[order]
     w = {name: ctx.weight(p[name], specs[name], keep) for name in ("wg", "wu", "wd")}
     ys = _experts(cfg, xs, sizes, w["wg"], w["wu"], w["wd"]) * gs[:, None]

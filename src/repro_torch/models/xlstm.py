@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from . import nn
+from .ssm import associative_scan
 
 __all__ = [
     "MLSTMConfig", "mlstm_init", "mlstm_apply", "mlstm_decode", "init_mlstm_cache",
@@ -89,6 +90,15 @@ def _mlstm_qkvif(p, cfg: MLSTMConfig, x):
     return q, k, v, log_i, log_f, z
 
 
+def _cummax(a, dim: int):
+    """`jax.lax.cummax(a, axis=dim)` as the reference differentiates it:
+    `associative_scan` of `torch.maximum`, whose backward splits a tie in
+    half at each pair, as `lax.max`'s does (`torch.cummax` would give one
+    index all of it, through a `scatter_add` whose atomics make the CUDA
+    backward vary from run to run)."""
+    return associative_scan(lambda x, y: [torch.maximum(x[0], y[0])], [a], dim)[0]
+
+
 def _mlstm_step(carry, xs):
     """One step of the recurrence (the reference's `_mlstm_step`)."""
     c, n, m = carry  # (B,H,dk,dv), (B,H,dk), (B,H)
@@ -120,7 +130,7 @@ def _mlstm_chunk(carry, xs):
 
     # Stabilisers: intra max over s≤t of (g_t - g_s + i_s); inter g_t + m̂.
     a = li - g
-    m_intra = g + torch.cummax(a, dim=2).values
+    m_intra = g + _cummax(a, 2)
     m_t = torch.maximum(m_intra, g + m_st[..., None])  # (B,H,L)
 
     # Intra-chunk decay matrix D[t,s] = exp(g_t - g_s + i_s - m_t), s ≤ t;
