@@ -115,7 +115,7 @@ from .formats import (
     register_format,
     registered_formats,
 )
-from .obs import MetricsRegistry, enable_tracing, get_tracer, span, traced
+from .obs import MetricsRegistry, enable_tracing, get_tracer, span
 from .batch import cp_als_batched
 from .serve import DecomposeService, ServeStats
 from .sweep import SweepConfig, load_config, pareto_report, run_sweep
@@ -230,7 +230,6 @@ __all__ = [
     "split_tasks",
     "table1_tensor",
     "tensor_from_reference",
-    "traced",
     "value_qformat",
     "wave_collision_mask",
 ]

@@ -9,8 +9,15 @@ engine's device.  The engine is any backend name registered in
 it measures the eligible backends per (tensor, rank, mode) and dispatches
 each mode to its winner; `tune=TunePolicy(...)` sets its knobs), an
 `Engine` from `build_engine`, or a callable ``f(factors, mode) -> (I_mode, R)``.
-The run emits `cp_als.decompose`, `.iter`, `.mode` and `.fit` spans when
-tracing is on (`repro_torch.obs`).
+When tracing is on (`repro_torch.obs`) the run emits `cp_als.decompose`
+around the whole call after the engine is built; inside it `cp_als.init`
+(the host draw of the initial factors), `cp_als.upload` (their copy to the
+device and the COO arrays'), per iteration `cp_als.iter` with its
+`cp_als.mode` spans, `cp_als.fit` with its `cp_als.norm` (the host norm of
+the values) and `cp_als.diff`, and for a lossy engine `cp_als.quant_error`;
+the counters `cp_als.upload_bytes` and `cp_als.uploads` of
+`obs.metrics.default_registry` count the bytes `cp_als.upload` copies and
+the calls that copied them.
 
 Normalization is L-infinity by default (paper §IV-C); L2 is available.
 """
@@ -25,7 +32,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..obs.tracing import span
+from ..obs import metrics as _metrics
+from ..obs.tracing import span, tracing_enabled
 from .sptensor import SparseTensor
 
 __all__ = [
@@ -67,6 +75,14 @@ def init_factors(shape, rank: int, seed: int = 0, *,
             for d in shape]
 
 
+def _upload_factors(host: list[torch.Tensor], device: torch.device) -> list[torch.Tensor]:
+    """`init_factors(..., device="cpu")`'s factors on `device`."""
+    # repro-lint: disable=host-sync -- the factors are CPU tensors: `.numpy()` is a view of their memory, no transfer
+    arrays = [f.numpy() for f in host]
+    # repro-lint: disable=host-sync -- init: the factors drawn on the host are uploaded once per decomposition
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
 def _normalize(f: torch.Tensor, norm: str):
     if norm == "linf":
         lam = f.abs().amax(dim=0)
@@ -90,6 +106,14 @@ def _pinv(v: torch.Tensor) -> torch.Tensor:
 def _coo_tensors(st: SparseTensor, device: torch.device):
     # repro-lint: disable=host-sync -- the COO arrays are uploaded once per decomposition, for the fit and diff
     return (torch.from_numpy(st.coords).to(device), torch.from_numpy(st.values).to(device))
+
+
+def _count_upload(nbytes: int) -> None:
+    """A traced call's copies in `obs.metrics.default_registry`: the counter
+    `cp_als.upload_bytes` adds their bytes and `cp_als.uploads` the call, so
+    that a reader can tell one traced window's bytes from earlier windows'."""
+    _metrics.default_registry.counter("cp_als.upload_bytes").inc(nbytes)
+    _metrics.default_registry.counter("cp_als.uploads").inc()
 
 
 def reconstruct_nnz(factors, lam, coords) -> torch.Tensor:
@@ -127,7 +151,8 @@ def fit_value(st: SparseTensor, factors, lam, mlast=None, last_mode=None, *,
     ||X - X̂||² = ||X||² - 2<X, X̂> + ||X̂||².  With `mlast`, the last mode's
     MTTKRP output, <X, X̂> = Σ λ_r Σ_i M[i,r]·F_last[i,r] skips the O(nnz·R)
     reconstruction (exact engines only).  One host readout."""
-    norm_x2 = st.norm() ** 2
+    with span("cp_als.norm"):
+        norm_x2 = st.norm() ** 2
     had = lam[:, None] * lam[None, :]
     for f in factors:
         had = had * (f.T @ f)
@@ -186,7 +211,8 @@ def _lossy_winners(eng) -> list[str]:
     return []
 
 
-def _measured_quant_error(eng, st: SparseTensor, factors, mlast, coo) -> float | None:
+def _measured_quant_error(eng, lossy: list[str], st: SparseTensor, factors, mlast,
+                          coo) -> float:
     """Measured MTTKRP relative error of a lossy engine, for CPResult.
 
     Prefers the autotuner's per-mode error probes (measured against the
@@ -195,10 +221,8 @@ def _measured_quant_error(eng, st: SparseTensor, factors, mlast, coo) -> float |
     winner serves) against the float COO reference on the final factors.
     The last mode's MTTKRP does not read the last factor, so the final
     iteration's output `mlast` is the engine's output on the final factors:
-    reusing it spares one launch."""
-    lossy = _lossy_winners(eng)
-    if not lossy:
-        return None
+    reusing it spares one launch.  `lossy` is `_lossy_winners(eng)`, not
+    empty."""
     report = getattr(eng, "report", None)
     mode = st.ndim - 1
     if report is not None:
@@ -272,16 +296,24 @@ def cp_als(
         eng_name = eng.name  # e.g. "chunked", "auto:hetero"
 
     n = st.ndim
-    factors = init_factors(st.shape, rank, seed, device=device)
-    lam = torch.ones((rank,), dtype=torch.float32, device=device)
     fit_fast = _exact_mttkrp(eng)
-    coo = None if fit_fast and not track_diff else _coo_tensors(st, device)
     fit_history, diff_history, iter_times = [], [], []
     prev_fit = -np.inf
     mlast = None
+    quant_error = None
     decompose_sp = span("cp_als.decompose", engine=eng_name, shape=list(st.shape),
                         nnz=int(st.nnz), rank=rank, n_iters=n_iters)
     with decompose_sp:
+        # Drawn on the host first, so that the draw and the copies time apart.
+        with span("cp_als.init"):
+            host = init_factors(st.shape, rank, seed, device="cpu")
+        with span("cp_als.upload"):
+            factors = _upload_factors(host, device)
+            coo = None if fit_fast and not track_diff else _coo_tensors(st, device)
+            if tracing_enabled():
+                _count_upload(sum(t.nbytes for t in (*factors, *(coo or ()))))
+        del host
+        lam = torch.ones((rank,), dtype=torch.float32, device=device)
         for it in range(n_iters):
             iter_sp = span("cp_als.iter", iter=it)
             with iter_sp:
@@ -314,12 +346,16 @@ def cp_als(
                               last_mode=n - 1 if fit_fast else None, coo=coo)
             fit_history.append(f)
             if track_diff:
-                diff_history.append(avg_abs_diff(st, factors, lam, coo=coo))
+                with span("cp_als.diff", iter=it):
+                    diff_history.append(avg_abs_diff(st, factors, lam, coo=coo))
             if tol is not None and abs(f - prev_fit) < tol:
                 break
             prev_fit = f
         decompose_sp.set(fit=fit_history[-1] if fit_history else None)
+        lossy = _lossy_winners(eng)
+        if lossy:
+            with span("cp_als.quant_error"):
+                quant_error = _measured_quant_error(eng, lossy, st, factors, mlast, coo)
 
-    quant_error = _measured_quant_error(eng, st, factors, mlast, coo)
     return CPResult(factors, lam, fit_history, diff_history, iter_times, eng_name, quant_error,
                     tune_report=getattr(eng, "report", None))

@@ -15,12 +15,16 @@ stack (the port's own copy of `repro.obs`).
 
 The instrumented surface: `autotune_engine` emits per-candidate
 `autotune.probe` spans and an `autotune.decision` span; `cp_als` emits
-`cp_als.decompose`, `cp_als.iter`, `cp_als.mode` and `cp_als.fit` spans
+`cp_als.decompose` around the whole call and inside it `cp_als.init`,
+`cp_als.upload`, `cp_als.iter`, `cp_als.mode`, `cp_als.fit` with its
+`cp_als.norm`, `cp_als.diff` and, for a lossy engine, `cp_als.quant_error`
 (the iteration span carries the same measurement `CPResult.iter_times`
-reports); `cp_als_batched` emits `cp_als_batched.bucket`/`.iter` spans and
-`autotune_bucket` an `autotune.bucket` span; `DecomposeService` emits
-`serve.batch`, `serve.request` and `serve.queue_wait` spans and records
-queue-wait/dispatch/request-latency histograms in its own
+reports), and counts the bytes it uploads and the calls in
+`default_registry`'s `cp_als.upload_bytes` and `cp_als.uploads` while
+tracing is on; `cp_als_batched` emits `cp_als_batched.bucket`/`.iter`
+spans and `autotune_bucket` an `autotune.bucket` span; `DecomposeService`
+emits `serve.batch`, `serve.request` and `serve.queue_wait` spans and
+records queue-wait/dispatch/request-latency histograms in its own
 `MetricsRegistry` (p50/p99 surfaced in `ServeStats`).
 """
 from __future__ import annotations
@@ -54,7 +58,6 @@ from .tracing import (
     get_tracer,
     record_span,
     span,
-    traced,
     tracing_enabled,
 )
 
@@ -79,7 +82,6 @@ __all__ = [
     "span_kind_summary",
     "summarize_text",
     "to_chrome_trace",
-    "traced",
     "tracing_enabled",
     "tune_decision_summary",
     "validate_spans",

@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import atexit
 import dataclasses
-import functools
 import os
 import threading
 import time
@@ -53,7 +52,6 @@ __all__ = [
     "get_tracer",
     "record_span",
     "span",
-    "traced",
     "tracing_enabled",
 ]
 
@@ -305,24 +303,6 @@ def record_span(name: str, duration: float, *, t_start: float | None = None,
         return 0
     return _TRACER.record(name, duration, t_start=t_start,
                           parent_id=parent_id, **attrs)
-
-
-def traced(name: str | None = None, **static_attrs):
-    """Decorator form: `@traced("engine.build")` wraps calls in a span named
-    after the function (module-qualified by default).  Keyword attrs are
-    attached to every span; the disabled path adds one attribute check on
-    top of the call."""
-    def deco(fn):
-        span_name = name or f"{fn.__module__.rsplit('.', 1)[-1]}.{fn.__qualname__}"
-
-        @functools.wraps(fn)
-        def wrapper(*args, **kwargs):
-            if not _TRACER.enabled:
-                return fn(*args, **kwargs)
-            with _Span(_TRACER, span_name, dict(static_attrs)):
-                return fn(*args, **kwargs)
-        return wrapper
-    return deco
 
 
 class capture:

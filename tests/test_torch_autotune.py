@@ -31,6 +31,7 @@ from repro.obs import capture as ref_capture
 from repro_torch.engine import WorkloadKey, autotune, costmodel, device_fingerprint
 from repro_torch.engine import registry as tregistry
 from repro_torch.obs import capture
+from repro_torch.obs import metrics as obs_metrics
 
 KW = dict(chunk_shape=(8, 8, 8), capacity=64)
 SHAPE, NNZ = (30, 24, 36), 700
@@ -330,12 +331,18 @@ def test_quant_error_without_budget_measures_a_lossy_mode(monkeypatch):
     assert got.quant_error == pytest.approx(want.quant_error, rel=0, abs=1e-5)
 
 
+#: The port's spans inside `cp_als` that the reference does not emit.
+PORT_ONLY_SPANS = ("cp_als.init", "cp_als.upload", "cp_als.norm", "cp_als.diff",
+                   "cp_als.quant_error")
+
+
 def _span_shape(spans):
     return [(s.name, tuple(sorted(s.attrs))) for s in spans]
 
 
 def test_spans_equal_reference(seam):
-    """Span names and attribute keys of a seam-timed tune plus cp_als."""
+    """Span names and attribute keys of a seam-timed tune plus cp_als, the
+    port's own spans inside `cp_als` left out."""
     cands = ("alto", "chunked", "ref")
     with capture() as got:
         rt.cp_als(rt.random_tensor(SHAPE, NNZ, seed=2), 4, 2, engine="auto", device="cpu",
@@ -343,7 +350,8 @@ def test_spans_equal_reference(seam):
     with ref_capture() as want:
         ref_cp_als(random_tensor(SHAPE, NNZ, seed=2), 4, 2, engine="auto",
                    tune=RTunePolicy(candidates=cands), **KW)
-    assert _span_shape(got) == _span_shape(want)
+    assert not {s.name for s in want} & set(PORT_ONLY_SPANS)
+    assert _span_shape([s for s in got if s.name not in PORT_ONLY_SPANS]) == _span_shape(want)
     names = {s.name for s in got}
     assert {"autotune.probe", "autotune.decision", "cp_als.decompose", "cp_als.iter",
             "cp_als.mode", "cp_als.fit"} <= names
@@ -353,12 +361,66 @@ def test_spans_equal_reference(seam):
     assert not any(s.attrs.get("engine", "").startswith("auto:") and s in want for s in got)
 
 
+@pytest.mark.parametrize("engine", ["ref", "fixed:int15-12"])
+def test_cp_als_spans_nest(engine):
+    """The whole call under `cp_als.decompose`: the factor draw, the uploads,
+    each iteration's fit (its host norm inside) and difference, and for a
+    lossy engine the quantisation error."""
+    n_iters = 3
+    with capture() as got:
+        res = rt.cp_als(rt.random_tensor(SHAPE, NNZ, seed=2), 4, n_iters, engine=engine,
+                        device="cpu", **KW)
+    (dec,) = [s for s in got if s.name == "cp_als.decompose"]
+    by = {name: [s for s in got if s.name == name]
+          for name in ("cp_als.iter", "cp_als.fit", *PORT_ONLY_SPANS)}
+    lossy = engine.startswith("fixed")
+    assert {k: len(v) for k, v in by.items()} == {
+        "cp_als.iter": n_iters, "cp_als.fit": n_iters, "cp_als.init": 1, "cp_als.upload": 1,
+        "cp_als.norm": n_iters, "cp_als.diff": n_iters, "cp_als.quant_error": int(lossy)}
+    assert (res.quant_error is not None) == lossy
+    for name, spans in by.items():
+        for s in spans:
+            assert dec.t_start <= s.t_start and s.t_start + s.duration <= dec.t_start + dec.duration
+            if name != "cp_als.norm":
+                assert s.parent_id == dec.span_id, name
+    fits = {s.span_id for s in by["cp_als.fit"]}
+    assert all(s.parent_id in fits for s in by["cp_als.norm"])
+    (init,), (upload,) = by["cp_als.init"], by["cp_als.upload"]
+    assert init.t_start + init.duration <= upload.t_start <= by["cp_als.iter"][0].t_start
+    if lossy:
+        assert by["cp_als.quant_error"][0].t_start >= by["cp_als.diff"][-1].t_start
+
+
+def _upload_bytes() -> tuple[int, int]:
+    """The registry's (bytes, calls) of `cp_als`'s uploads."""
+    reg = obs_metrics.default_registry
+    return reg.counter("cp_als.upload_bytes").value, reg.counter("cp_als.uploads").value
+
+
+@pytest.mark.parametrize("track_diff", [True, False])
+def test_upload_bytes_count_what_the_call_copies(track_diff):
+    """Float32 factors, int32 coordinates and float32 values; an exact engine
+    without the difference needs no COO copy."""
+    rank, n_iters = 4, 2
+    st = rt.random_tensor(SHAPE, NNZ, seed=2)
+    nbytes, calls = _upload_bytes()
+    with capture():
+        rt.cp_als(st, rank, n_iters, engine="ref", device="cpu", track_diff=track_diff)
+    coo = NNZ * len(SHAPE) * 4 + NNZ * 4 if track_diff else 0
+    assert st.nnz == NNZ
+    assert _upload_bytes() == (nbytes + sum(SHAPE) * rank * 4 + coo, calls + 1)
+
+
 def test_tracing_disabled_is_a_no_op():
     from repro_torch.obs import tracing
     assert not tracing.tracing_enabled()
     before = len(tracing.get_tracer())
+    uploaded = _upload_bytes()
     rt.cp_als(rt.random_tensor(SHAPE, NNZ, seed=2), 4, 1, engine="ref", device="cpu")
+    rt.cp_als(rt.random_tensor(SHAPE, NNZ, seed=2), 4, 1, engine="fixed:int15-12",
+              device="cpu", **KW)
     assert len(tracing.get_tracer()) == before
+    assert _upload_bytes() == uploaded
     sp = tracing.span("x", a=1)
     assert sp is tracing._NULL_SPAN and sp.set(b=2) is sp and sp.duration is None
 
