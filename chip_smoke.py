@@ -8,7 +8,7 @@ Phases, each fatal on failure:
      0a. the port's static analysis (`repro_torch.analysis`, every rule,
      `--strict`) over this checkout: fatal on any unsuppressed finding;
      prints the findings and suppressions per rule and its seconds;
-  2. build the three CUDA sources with nvcc (one process each, started
+  2. build the four CUDA sources with nvcc (one process each, started
      together) and print what ptxas reports for each kernel instantiation
      (registers, spills); every width of the Gram pseudo-inverse's warp
      tier must be listed with no stack frame and no spill;
@@ -35,7 +35,8 @@ Phases, each fatal on failure:
      reference, is phase 4e's `--engine kernel` check); every mode
      update's pseudo-inverse
      goes through the Gram pseudo-inverse kernel's warp tier
-     (`csrc/gram_pinv.cu`, n_iters × 3 launches);
+     (`csrc/gram_pinv.cu`, n_iters × 3 launches), and ||X||² through the
+     sum-of-squares kernel once (`csrc/sum_squares.cu`);
      4p. (right after phase 4) the Gram pseudo-inverse kernel against its
      plain version (torch's SVD with jnp's cutoff) on the card at
      max(1e-5, κ·2^-17) of each matrix's largest entry, bitwise symmetric,
@@ -67,7 +68,13 @@ Phases, each fatal on failure:
      0a's `host-sync` rule reports (suppressed, with its reason); sites in
      torch's own code are printed and not judged; each iteration must wait
      on the host exactly twice (the fit and diff readouts), never in the
-     pseudo-inverse;
+     pseudo-inverse, and ||X||² must launch its kernel once;
+     4n. (right after phase 4y) the sum-of-squares kernel against its plain
+     version (float64 dots over slices of 2^22 values) and numpy's float64
+     dot on (a)'s values, within 2·nnz·2^-53 of the sum, its bits repeated
+     by a second launch; timed in turns (plain, library, kernel, then back)
+     beside its bound (4 bytes a value at 3.35 TB/s), with the host µs per
+     call;
      4f. the fixed-point path: cp_als through the `fixed` engine on (a) with
      int7 and on (c) with int15-12; the fixed kernel must launch n_iters × N
      times (the float one never), and fit, diff and factors must equal, bit
@@ -365,6 +372,7 @@ from repro_torch.kernels import (  # noqa: E402
     gram_pinv,
     mttkrp_fixed_kernel,
     mttkrp_kernel,
+    sum_squares,
     tiles,
 )
 from repro_torch.kernels import ref as kref  # noqa: E402
@@ -416,6 +424,9 @@ KERNELS = {
     # No Pallas counterpart: it ports the reference's `jnp.linalg.pinv` call.
     "pinv": dict(name="gram_pinv_f32", source="src/repro_torch/kernels/csrc/gram_pinv.cu",
                  replaces="src/repro/core/cpals.py:315"),
+    # No Pallas counterpart: it replaces the reference's host norm of the values.
+    "norm": dict(name="sum_squares_f32", source="src/repro_torch/kernels/csrc/sum_squares.cu",
+                 replaces="src/repro/core/cpals.py:124"),
 }
 F64_FLOPS = 34e12                  # H100 SXM data sheet, float64 outside the tensor cores
 # The Gram pseudo-inverse kernel (float64 Jacobi) against its plain version
@@ -506,7 +517,8 @@ def ptxas_summary(build_log: str) -> list[str]:
             if warp:
                 name, spills = f"gram_pinv_warp_kernel<W={warp.group(1)}>", ""
                 continue
-            kind = next((k for k in ("task_kernel", "gram_pinv_kernel") if k in mangled),
+            kind = next((k for k in ("task_kernel", "gram_pinv_kernel", "sum_squares_kernel")
+                         if k in mangled),
                         "global_kernel")
             pol = re.search(r"FixedPolicyI(\w)(\w)E", mangled)
             policy = (f"fixed<{types[pol.group(1)]} factors, {types[pol.group(2)]} values>"
@@ -3092,6 +3104,7 @@ def sync_sites(st, engine, analysis: AnalysisResult, device) -> tuple[int, int]:
     mttkrp_kernel.launches = 0
     mttkrp_fixed_kernel.launches = 0
     gram_pinv.launches = 0
+    sum_squares.launches = 0
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
         marked = _IterationMarks(engine, rec)
@@ -3108,6 +3121,9 @@ def sync_sites(st, engine, analysis: AnalysisResult, device) -> tuple[int, int]:
              f"{mttkrp_fixed_kernel.launches}")
     if len(marked.marks) != SYNC_ITERS or not all(math.isfinite(f) for f in res.fit_history):
         fail(f"phase 4y: {len(marked.marks)} iterations marked, fit {res.fit_history}")
+    if sum_squares.launches != 1:
+        fail(f"phase 4y: the sum-of-squares kernel launched {sum_squares.launches} times, "
+             "expected 1")
     # A warning recorded before the k-th mark belongs to iteration k - 1
     # (0: the set-up before the first iteration).
     syncs = [(bisect.bisect_right(marked.marks, i), w) for i, w in enumerate(rec)
@@ -3150,6 +3166,43 @@ def sync_sites(st, engine, analysis: AnalysisResult, device) -> tuple[int, int]:
         fail(f"phase 4y: synchronising sites the host-sync rule misses, or a wrong count: "
              f"{sorted(set(gaps))}")
     return launches, pinv_launches
+
+
+def norm_checks(st, device) -> dict:
+    """Phase 4n: the sum-of-squares kernel on `st`'s values against its plain
+    version and numpy's float64 dot, then timed in turns.  Returns the
+    kernels line's numbers (ms/plain_ms/library_ms/bound_ms, the relative
+    gap to numpy)."""
+    values = torch.from_numpy(st.values).to(device)
+    x64 = st.values.astype(np.float64)
+    want = float(np.dot(x64, x64))
+    tol = 2 * st.nnz * 2.0 ** -53
+    got, again = sum_squares.sum_squares(values), sum_squares.sum_squares(values)
+    plain = kref.sum_squares_ref(values)
+    gaps = {name: abs(float(t) - want) / want for name, t in (("kernel", got), ("plain", plain))}
+    log(f"[4n]   {st.nnz} values: kernel {float(got)!r}, plain {float(plain)!r}, numpy {want!r}; "
+        f"relative gaps to numpy {gaps} (tolerance {tol:.3e})")
+    if not torch.equal(got, again):
+        fail("phase 4n: two launches of the sum-of-squares kernel gave different bits")
+    if max(gaps.values()) > tol:
+        fail(f"phase 4n: the sum of squares left numpy's float64 dot: {gaps}")
+    def library():  # one PyTorch call; it widens the whole tensor to float64 first
+        return torch.linalg.vector_norm(values, dtype=torch.float64) ** 2
+
+    p1, l1, k1, k2, l2, p2 = (time_ms(lambda: kref.sum_squares_ref(values), 20),
+                              time_ms(library, 20),
+                              time_ms(lambda: sum_squares.sum_squares(values), 20),
+                              time_ms(lambda: sum_squares.sum_squares(values), 20),
+                              time_ms(library, 20),
+                              time_ms(lambda: kref.sum_squares_ref(values), 20))
+    bound = 4 * st.nnz / H100_SXM5.hbm_bw * 1e3
+    hk, hp = (host_us(lambda: sum_squares.sum_squares(values)),
+              host_us(lambda: kref.sum_squares_ref(values)))
+    log(f"[4n]   kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+        f"torch.linalg.vector_norm(float64)² {l1:.4f}/{l2:.4f} ms, bound {bound:.4f} ms (bytes); "
+        f"host {hk:.1f} µs per kernel call, {hp:.1f} µs per plain call")
+    return dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=(l1 + l2) / 2,
+                bound_ms=bound, bound_by="bytes", max_abs_err=gaps["kernel"])
 
 
 # ---------------------------------------------------------------------------
@@ -3412,9 +3465,9 @@ def main() -> int:
     # 0a. The port's static analysis over this checkout (host work).
     analysis = static_analysis()
 
-    # 2. Build both kernels, one nvcc each, in parallel.
+    # 2. Build the kernels, one nvcc each, in parallel.
     t0 = time.perf_counter()
-    sources = ["mttkrp", "mttkrp_fixed", "gram_pinv"]
+    sources = ["mttkrp", "mttkrp_fixed", "gram_pinv", "sum_squares"]
     _build.build(sources)
     log(f"[2] built csrc/{{{', '.join(sources)}}}.cu in {time.perf_counter() - t0:.1f}s")
     for name in sources:
@@ -3466,6 +3519,7 @@ def main() -> int:
     mttkrp_kernel.launches = 0
     mttkrp_fixed_kernel.launches = 0
     gram_pinv.launches = 0
+    sum_squares.launches = 0
     torch.cuda.reset_peak_memory_stats()
     base_bytes = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -3476,11 +3530,12 @@ def main() -> int:
     launches = mttkrp_kernel.launches
     fixed_in_float = mttkrp_fixed_kernel.launches
     pinv_launches = gram_pinv.launches
+    norm_launches = sum_squares.launches
     peak_bytes = torch.cuda.max_memory_allocated()
     float_iter_times = res.iter_times
     log(f"[4] cp_als engine={res.engine} in {t_main:.1f}s, kernel launches={launches}, "
         f"fixed kernel launches={fixed_in_float}, Gram pseudo-inverse kernel launches="
-        f"{pinv_launches}")
+        f"{pinv_launches}, sum-of-squares kernel launches={norm_launches}")
     log(f"[4]   fit_history={res.fit_history}")
     log(f"[4]   diff_history={res.diff_history}")
     log(f"[4]   iter_times={res.iter_times}")
@@ -3494,6 +3549,8 @@ def main() -> int:
         fail(f"kernel launched {launches} times in the main path and the Gram kernel "
              f"{pinv_launches}, expected {N_ITERS * st_a.ndim} each; the fixed kernel "
              f"{fixed_in_float} times, expected 0")
+    if norm_launches != 1:
+        fail(f"the sum-of-squares kernel launched {norm_launches} times, expected 1 a call")
     if len(res.fit_history) != N_ITERS or not all(math.isfinite(f) for f in res.fit_history):
         fail(f"fit_history is not {N_ITERS} finite values")
     for m, f in enumerate(res.factors):
@@ -3526,6 +3583,11 @@ def main() -> int:
     t0 = time.perf_counter()
     sync_launches, sync_pinv_launches = sync_sites(st_a, engine, analysis, device)
     log(f"[4y] phase took {time.perf_counter() - t0:.1f}s")
+
+    # 4n. The sum-of-squares kernel against its plain version.
+    t0 = time.perf_counter()
+    norm_row = norm_checks(st_a, device)
+    log(f"[4n] phase took {time.perf_counter() - t0:.1f}s")
 
     # 4d. The distributed engine at (a) on a one-rank NCCL mesh.
     t0 = time.perf_counter()
@@ -3722,10 +3784,12 @@ def main() -> int:
     log(f"[6] total {time.perf_counter() - t_start:.1f}s")
 
     # 6. Kernels line (ms/plain_ms/bound_ms: the 3 launches of one CP-ALS
-    # iteration at case (a)'s shapes, summed over the modes; launches: the
+    # iteration at case (a)'s shapes, summed over the modes, and the
+    # sum-of-squares kernel's one launch a call on (a)'s values; launches: the
     # main paths' runs, the float kernel's through `kernel` (phases 4 and 4y), `distributed`,
     # `hetero` and the tuned `auto` engine, the fixed kernel's over both of
-    # its runs, the Gram kernel's through `kernel` (phases 4 and 4y).  The
+    # its runs, the Gram kernel's and the sum-of-squares kernel's through
+    # `kernel` (phases 4 and 4y).  The
     # benchmark harness's launches (4r) stay on their own line: its
     # autotune probes vary from run to run, and these counts do not).
     def entry(kind, rows, n_launches, err):
@@ -3744,7 +3808,9 @@ def main() -> int:
                                         fixed_launches, float(worst_fixed)),
                                   {**KERNELS["pinv"], "route": "cuda",
                                    "launches": pinv_launches + sync_pinv_launches,
-                                   **pinv_row}]}), flush=True)
+                                   **pinv_row},
+                                  {**KERNELS["norm"], "route": "cuda",
+                                   "launches": norm_launches + 1, **norm_row}]}), flush=True)
     # 7. Device line, last.
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

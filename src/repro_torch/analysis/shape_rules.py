@@ -63,6 +63,7 @@ CONTRACT_MODULES = (
     "src/repro_torch/kernels/mttkrp_fixed_kernel.py",
     "src/repro_torch/kernels/ref.py",
     "src/repro_torch/kernels/gram_pinv.py",
+    "src/repro_torch/kernels/sum_squares.py",
 )
 
 #: (ndim, mode) instantiations every contracted function is proven over.

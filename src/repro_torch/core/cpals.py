@@ -12,9 +12,11 @@ each mode to its winner; `tune=TunePolicy(...)` sets its knobs), an
 When tracing is on (`repro_torch.obs`) the run emits `cp_als.decompose`
 around the whole call after the engine is built; inside it `cp_als.init`
 (the host draw of the initial factors), `cp_als.upload` (their copy to the
-device and the COO arrays'), per iteration `cp_als.iter` with its
-`cp_als.mode` spans, `cp_als.fit` with its `cp_als.norm` (the host norm of
-the values) and `cp_als.diff`, and for a lossy engine `cp_als.quant_error`;
+device and the COO arrays'), `cp_als.norm` (‖X‖², once a call: reduced on
+the device from the uploaded values, `where="device"`, or on the host where
+the call uploads no COO, `where="host"`), per iteration `cp_als.iter` with
+its `cp_als.mode` spans, `cp_als.fit` and `cp_als.diff`, and for a lossy
+engine `cp_als.quant_error`;
 the counters `cp_als.upload_bytes` and `cp_als.uploads` of
 `obs.metrics.default_registry` count the bytes `cp_als.upload` copies and
 the calls that copied them.
@@ -145,13 +147,28 @@ def avg_abs_diff(st: SparseTensor, factors, lam, *, dense_limit: int = 1 << 22,
     return float((values - approx).abs().mean())
 
 
+def _sum_squares(values: torch.Tensor) -> torch.Tensor:
+    """||X||² of the uploaded float32 values as a 0-d float64 tensor on their
+    device, squared and summed in float64 with no host synchronisation: the
+    hand-written kernel on the card, the plain version on the CPU
+    (`kernels.sum_squares`)."""
+    from ..kernels.sum_squares import sum_squares  # the kernels package imports core
+
+    return sum_squares(values)
+
+
 def fit_value(st: SparseTensor, factors, lam, mlast=None, last_mode=None, *,
-              coo=None) -> float:
+              coo=None, norm_x2=None) -> float:
     """fit = 1 - ||X - X̂||_F / ||X||_F, using the sparse identity
     ||X - X̂||² = ||X||² - 2<X, X̂> + ||X̂||².  With `mlast`, the last mode's
     MTTKRP output, <X, X̂> = Σ λ_r Σ_i M[i,r]·F_last[i,r] skips the O(nnz·R)
-    reconstruction (exact engines only).  One host readout."""
-    with span("cp_als.norm"):
+    reconstruction (exact engines only).  `norm_x2` is ||X||², a constant of
+    the tensor that `cp_als` computes once a call: a host float, or a 0-d
+    float64 device tensor (`_sum_squares`) read back with the residual;
+    None computes it here on the host (`st.norm() ** 2`).  The residual is
+    float32 on the factors' device, ||X||² entering it rounded to float32;
+    the last step is float64 on the host.  One host readout."""
+    if norm_x2 is None:
         norm_x2 = st.norm() ** 2
     had = lam[:, None] * lam[None, :]
     for f in factors:
@@ -162,8 +179,14 @@ def fit_value(st: SparseTensor, factors, lam, mlast=None, last_mode=None, *,
     else:
         coords, values = coo if coo is not None else _coo_tensors(st, lam.device)
         inner = torch.dot(reconstruct_nnz(factors, lam, coords), values)
-    # repro-lint: disable=host-sync -- fit is a host scalar by contract: one fused readout per iteration, after the iteration's timed barrier
-    resid = max(float(norm_x2 - 2.0 * inner + norm_approx2), 0.0)
+    if isinstance(norm_x2, torch.Tensor):
+        resid = norm_x2.to(torch.float32) - 2.0 * inner + norm_approx2
+        # repro-lint: disable=host-sync -- fit is a host scalar by contract: one fused readout per iteration (the residual with the float64 ||X||²), after the iteration's timed barrier
+        resid, norm_x2 = torch.stack((resid.to(torch.float64), norm_x2)).tolist()
+    else:
+        # repro-lint: disable=host-sync -- fit is a host scalar by contract: one fused readout per iteration, after the iteration's timed barrier
+        resid = float(norm_x2 - 2.0 * inner + norm_approx2)
+    resid = max(resid, 0.0)
     return 1.0 - math.sqrt(resid) / max(math.sqrt(norm_x2), 1e-30)
 
 
@@ -313,6 +336,9 @@ def cp_als(
             if tracing_enabled():
                 _count_upload(sum(t.nbytes for t in (*factors, *(coo or ()))))
         del host
+        # ‖X‖² once a call, on the device where the values already are.
+        with span("cp_als.norm", where="host" if coo is None else "device"):
+            norm_x2 = st.norm() ** 2 if coo is None else _sum_squares(coo[1])
         lam = torch.ones((rank,), dtype=torch.float32, device=device)
         for it in range(n_iters):
             iter_sp = span("cp_als.iter", iter=it)
@@ -343,7 +369,8 @@ def cp_als(
             with span("cp_als.fit", iter=it, fast=fit_fast):
                 f = fit_value(st, factors, lam,
                               mlast=mlast if fit_fast else None,
-                              last_mode=n - 1 if fit_fast else None, coo=coo)
+                              last_mode=n - 1 if fit_fast else None, coo=coo,
+                              norm_x2=norm_x2)
             fit_history.append(f)
             if track_diff:
                 with span("cp_als.diff", iter=it):

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the kernels' contracts (counterpart of
 `repro.kernels.ref`): per-task (T, S_mode, R) partial blocks before the
-global sum, float and fixed point, that global sum, and the pseudo-inverse
-of CP-ALS's Gram Hadamard products.  The CPU path runs them; on the card
-they are what the CUDA kernels are held against.
+global sum, float and fixed point, that global sum, the pseudo-inverse
+of CP-ALS's Gram Hadamard products, and the sum of squares of the fit's
+||X||².  The CPU path runs them; on the card they are what the CUDA kernels
+are held against.
 """
 from __future__ import annotations
 
@@ -10,7 +11,11 @@ import torch
 
 from ..core.mttkrp import _fixed_partials, chunk_offsets, index_add_drop, scatter_local
 
-__all__ = ["gram_pinv_ref", "mttkrp_fixed_local_ref", "mttkrp_local_ref", "reduce_local"]
+__all__ = ["gram_pinv_ref", "mttkrp_fixed_local_ref", "mttkrp_local_ref", "reduce_local",
+           "sum_squares_ref"]
+
+#: Values `sum_squares_ref` widens to float64 at a time (32 MiB).
+SUM_SQUARES_SLICE = 1 << 22
 
 
 def mttkrp_local_ref(factors, task_chunk, coords_rel, values, *, mode: int,
@@ -92,3 +97,14 @@ def gram_pinv_ref(v: torch.Tensor) -> torch.Tensor:
     # repro-lint: disable=host-sync -- plain version: CPU and tests only; the card's main path runs gram_pinv.cu
     out = torch.linalg.pinv(torch.where(bad, 0.0, v), rtol=rtol)
     return out.masked_fill(nan[..., None, None], float("nan"))
+
+
+def sum_squares_ref(values: torch.Tensor) -> torch.Tensor:
+    """Σ v² of float32 `values` as a 0-d float64 tensor on their device.  A
+    float32 squares exactly in float64, so only the summation order differs
+    from `SparseTensor.norm() ** 2`.  torch widens a whole tensor before a
+    float64 reduction of it, so each slice of `SUM_SQUARES_SLICE` values is
+    widened and reduced apart."""
+    parts = [torch.dot(s, s) for s in (c.to(torch.float64)
+                                       for c in values.split(SUM_SQUARES_SLICE))]
+    return torch.stack(parts).sum()

@@ -16,8 +16,9 @@ stack (the port's own copy of `repro.obs`).
 The instrumented surface: `autotune_engine` emits per-candidate
 `autotune.probe` spans and an `autotune.decision` span; `cp_als` emits
 `cp_als.decompose` around the whole call and inside it `cp_als.init`,
-`cp_als.upload`, `cp_als.iter`, `cp_als.mode`, `cp_als.fit` with its
-`cp_als.norm`, `cp_als.diff` and, for a lossy engine, `cp_als.quant_error`
+`cp_als.upload`, `cp_als.norm` (once a call, with `where`), `cp_als.iter`,
+`cp_als.mode`, `cp_als.fit`, `cp_als.diff` and, for a lossy engine,
+`cp_als.quant_error`
 (the iteration span carries the same measurement `CPResult.iter_times`
 reports), and counts the bytes it uploads and the calls in
 `default_registry`'s `cp_als.upload_bytes` and `cp_als.uploads` while

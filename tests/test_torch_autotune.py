@@ -364,8 +364,8 @@ def test_spans_equal_reference(seam):
 @pytest.mark.parametrize("engine", ["ref", "fixed:int15-12"])
 def test_cp_als_spans_nest(engine):
     """The whole call under `cp_als.decompose`: the factor draw, the uploads,
-    each iteration's fit (its host norm inside) and difference, and for a
-    lossy engine the quantisation error."""
+    ||X||² once on the device from the uploaded values, each iteration's fit
+    and difference, and for a lossy engine the quantisation error."""
     n_iters = 3
     with capture() as got:
         res = rt.cp_als(rt.random_tensor(SHAPE, NNZ, seed=2), 4, n_iters, engine=engine,
@@ -376,17 +376,17 @@ def test_cp_als_spans_nest(engine):
     lossy = engine.startswith("fixed")
     assert {k: len(v) for k, v in by.items()} == {
         "cp_als.iter": n_iters, "cp_als.fit": n_iters, "cp_als.init": 1, "cp_als.upload": 1,
-        "cp_als.norm": n_iters, "cp_als.diff": n_iters, "cp_als.quant_error": int(lossy)}
+        "cp_als.norm": 1, "cp_als.diff": n_iters, "cp_als.quant_error": int(lossy)}
     assert (res.quant_error is not None) == lossy
     for name, spans in by.items():
         for s in spans:
             assert dec.t_start <= s.t_start and s.t_start + s.duration <= dec.t_start + dec.duration
-            if name != "cp_als.norm":
-                assert s.parent_id == dec.span_id, name
-    fits = {s.span_id for s in by["cp_als.fit"]}
-    assert all(s.parent_id in fits for s in by["cp_als.norm"])
-    (init,), (upload,) = by["cp_als.init"], by["cp_als.upload"]
-    assert init.t_start + init.duration <= upload.t_start <= by["cp_als.iter"][0].t_start
+            assert s.parent_id == dec.span_id, name
+    (init,), (upload,), (norm,) = by["cp_als.init"], by["cp_als.upload"], by["cp_als.norm"]
+    assert init.t_start + init.duration <= upload.t_start
+    assert upload.t_start + upload.duration <= norm.t_start
+    assert norm.t_start + norm.duration <= by["cp_als.iter"][0].t_start
+    assert norm.attrs["where"] == "device"
     if lossy:
         assert by["cp_als.quant_error"][0].t_start >= by["cp_als.diff"][-1].t_start
 

@@ -163,3 +163,45 @@ def test_prebuilt_engine_brings_its_device():
     assert mttkrp_kernel.launches == before
     with pytest.raises(ValueError, match="runs on cpu"):
         rt.cp_als(st, 4, 1, engine=eng, device="meta")
+
+
+@pytest.mark.parametrize("track_diff", [True, False])
+@pytest.mark.parametrize("engine", ["ref", "fixed:int15-12"])
+def test_norm_once_per_call(monkeypatch, engine, track_diff):
+    """||X||² is computed once a call: on the device from the uploaded values
+    when the call uploads the COO (with the difference, or for a lossy
+    engine's factors-only fit), on the host with one `SparseTensor.norm` where
+    it uploads none; every fit equals `fit_value` with the host norm on the
+    same iteration's state."""
+    from repro_torch.core import cpals as port_cpals
+    st = rt.random_tensor((30, 24, 36), 700, seed=2)
+    norms, fits = [], []
+    real_norm, real_fit = rt.SparseTensor.norm, port_cpals.fit_value
+
+    def counted_norm(self):
+        norms.append(1)
+        return real_norm(self)
+
+    def recorded_fit(st, factors, lam, *args, **kwargs):
+        fits.append(([f.clone() for f in factors], lam.clone(), args, dict(kwargs)))
+        return real_fit(st, factors, lam, *args, **kwargs)
+
+    monkeypatch.setattr(rt.SparseTensor, "norm", counted_norm)
+    monkeypatch.setattr(port_cpals, "fit_value", recorded_fit)
+    res = rt.cp_als(st, 4, 3, engine=engine, device="cpu", track_diff=track_diff,
+                    chunk_shape=(8, 8, 8), capacity=64)
+    on_host = engine == "ref" and not track_diff
+    assert len(norms) == int(on_host)
+    assert len(fits) == len(res.fit_history) == 3
+    for got, (factors, lam, args, kwargs) in zip(res.fit_history, fits, strict=True):
+        assert isinstance(kwargs.pop("norm_x2"), float if on_host else torch.Tensor)
+        assert abs(got - real_fit(st, factors, lam, *args, **kwargs)) <= 1e-9
+    monkeypatch.undo()
+    factors, lam = res.factors, res.lam
+    norm_x2 = st.norm() ** 2
+    assert rt.fit_value(st, factors, lam, norm_x2=norm_x2) == rt.fit_value(st, factors, lam)
+    device_norm = port_cpals._sum_squares(torch.from_numpy(st.values))
+    assert device_norm.dtype == torch.float64 and device_norm.dim() == 0
+    assert abs(float(device_norm) - norm_x2) <= 1e-12 * norm_x2
+    assert abs(rt.fit_value(st, factors, lam, norm_x2=device_norm)
+               - rt.fit_value(st, factors, lam)) <= 1e-9

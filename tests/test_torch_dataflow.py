@@ -401,7 +401,7 @@ def test_contracts_give_the_concrete_shapes(ndim, mode):
         assert tuple(out.shape) == want, key
         assert out.dtype == getattr(torch, entry["returns"]["dtype"]), key
         checked += 1
-    assert checked == 21
+    assert checked == 23
 
 
 def test_contract_module_list_is_pinned():

@@ -35,6 +35,7 @@ from repro_torch.kernels import (
     gram_pinv,
     mttkrp_fixed_kernel,
     mttkrp_kernel,
+    sum_squares,
     tiles,
 )
 from repro_torch.kernels import ref as pref
@@ -629,6 +630,55 @@ def test_cp_als_kernel_engine_through_gram_pinv(cuda, monkeypatch):
     for got, want in zip(res.factors, fs, strict=True):
         gap = np.abs(got.double().cpu().numpy() - want).max() / np.abs(want).max()
         assert gap <= max(1e-5, kappa * 2.0 ** -17), (gap, kappa)
+
+
+# ---------------------------------------------------------------------------
+# the fit's sum of squares (csrc/sum_squares.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 255, 256 * 1024 + 7, (1 << 22) + 3, 9_000_001])
+def test_sum_squares_matches_plain(cuda, n):
+    """Float64 sums of exact float64 squares: the kernel, the plain version
+    and numpy differ only in the order of the additions, within 2·n·2^-53 of
+    the sum; the kernel's order depends on n alone, so it repeats its bits."""
+    x = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    values = torch.from_numpy(x).to(cuda)
+    before = sum_squares.launches
+    got, again = sum_squares.sum_squares(values), sum_squares.sum_squares(values)
+    assert sum_squares.launches == before + 2
+    assert got.dtype == torch.float64 and got.dim() == 0 and got.device == values.device
+    assert torch.equal(got, again)
+    x64 = x.astype(np.float64)
+    want = float(np.dot(x64, x64))
+    for other in (float(got), float(pref.sum_squares_ref(values))):
+        assert abs(other - want) <= 2 * n * 2.0 ** -53 * want
+
+
+def test_sum_squares_refuses_what_it_does_not_take(cuda):
+    before = sum_squares.launches
+    empty = sum_squares.sum_squares(torch.empty(0, device=cuda))
+    assert float(empty) == 0.0 and empty.dtype == torch.float64
+    for bad, err in [(torch.ones(4, 4, device=cuda), ValueError),
+                     (torch.ones(8, device=cuda)[::2], ValueError),
+                     (torch.ones(8, dtype=torch.float64, device=cuda), TypeError)]:
+        with pytest.raises(err):
+            sum_squares.sum_squares(bad)
+    assert sum_squares.launches == before
+
+
+def test_cp_als_reduces_the_norm_once_on_the_card(cuda):
+    """One launch a `cp_als` call that uploads the COO, none where it uploads
+    none; the fit from the kernel's ||X||² equals the host norm's within 1e-9."""
+    st = rt.random_tensor((42, 30, 36), 900, seed=5)
+    kw = dict(chunk_shape=(6, 6, 6), capacity=16)
+    before = sum_squares.launches
+    res = rt.cp_als(st, 8, n_iters=3, engine="kernel", seed=4, **kw)
+    assert sum_squares.launches == before + 1
+    rt.cp_als(st, 8, n_iters=3, engine="kernel", seed=4, track_diff=False, **kw)
+    assert sum_squares.launches == before + 1
+    norm_x2 = sum_squares.sum_squares(torch.from_numpy(st.values).to(cuda))
+    assert abs(port_cpals.fit_value(st, res.factors, res.lam, norm_x2=norm_x2)
+               - port_cpals.fit_value(st, res.factors, res.lam)) <= 1e-9
 
 
 @pytest.fixture
