@@ -13,8 +13,9 @@ Phases, each fatal on failure:
      (registers, spills); every width of the Gram pseudo-inverse's warp
      tier must be listed with no stack frame and no spill;
   3. hold the float kernel against its plain PyTorch version on the card,
-     every mode, local partials and the full op (with `nnz_per_task`, as
-     the engines call them), printing each launch's tier, blocks per task
+     every mode, local partials and the full op (the direct output: every
+     task's sums added into one zero-filled (I_pad, R) buffer, with
+     `nnz_per_task`, as the engines call it), printing each launch's tier, blocks per task
      and shared-memory bytes, for
        (a) NELL-2's published dims and nnz, uniform, seed 0, R = 10, under the
            256 KiB plan of examples/decompose_tensor.py,
@@ -122,9 +123,10 @@ Phases, each fatal on failure:
      model's split (every task dense: no launch) and with dense_fraction
      0.5 (n_iters × 3 launches), fit against `kernel` on the same plan;
   5. time both kernels per mode at case (a) with CUDA events beside their
-     plain versions, their global tier (the first design, without
-     `nnz_per_task`) in turns (plain, global, kernel, kernel, global,
-     plain) and their bounds, and the engines' steady iterations;
+     plain versions, their global tier (without `nnz_per_task`) in turns
+     (plain, global, kernel, kernel, global, plain), both kernels adding
+     into the (I_pad, R) output as the ops launch them, and their bounds,
+     and the engines' steady iterations;
      5h. time each role's MTTKRP per mode at case (a) in turns (ref, alto,
      csf, plain chunked, the kernel's full op, hetero, then back), beside
      the bytes each must move (its index bytes, the values, the factor
@@ -476,30 +478,37 @@ def bound(nbytes: float, ops: float, op_rate: float) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def out_rows(st, ct, mode: int) -> int:
+    """Rows of the kernels' direct output: the mode's dim in whole chunks."""
+    return -(-st.shape[mode] // ct.chunk_shape[mode]) * ct.chunk_shape[mode]
+
+
 def kernel_bound(st, ct, mode: int) -> tuple[float, str, float, float]:
-    """Least time for one float local launch: each live nonzero's coordinates
-    and value read once, each input factor read once, each partial written
-    once, over the memory rate; (N-1)·R multiplies + R adds per nonzero over
-    the float32 rate.  Returns (ms, bound_by, bytes, operations)."""
+    """Least time for one float launch as the op makes it: each live
+    nonzero's coordinates and value read once, each input factor read once,
+    the (I_pad, R) output written once, over the memory rate; (N-1)·R
+    multiplies + R adds per nonzero over the float32 rate.  Returns (ms,
+    bound_by, bytes, operations)."""
     n = st.ndim
     nbytes = (st.nnz * (4 * n + 4)
               + sum(st.shape[m] * RANK * 4 for m in range(n) if m != mode)
-              + ct.num_tasks * ct.chunk_shape[mode] * RANK * 4)
+              + out_rows(st, ct, mode) * RANK * 4)
     ops = st.nnz * RANK * n
     return (*bound(nbytes, ops, F32_FLOPS), nbytes, ops)
 
 
 def fixed_kernel_bound(st, ct, mode: int, live: int, factor_bytes: int,
                        value_bytes: int) -> tuple[float, str, float, float]:
-    """Least time for one fixed-point local launch: each live nonzero's
-    (nonzero qvalue) coordinates and qvalue read once, each input factor once
-    at its storage width, each int32 partial written once, over the memory
-    rate; per live nonzero and r, (N-2) multiplies and shifts, one multiply
-    by the qvalue, one shift and one add, over the int32 rate."""
+    """Least time for one fixed-point launch as the op makes it: each live
+    nonzero's (nonzero qvalue) coordinates and qvalue read once, each input
+    factor once at its storage width, the (I_pad, R) int32 output written
+    once, over the memory rate; per live nonzero and r, (N-2) multiplies and
+    shifts, one multiply by the qvalue, one shift and one add, over the
+    int32 rate."""
     n = st.ndim
     nbytes = (live * (4 * n + value_bytes)
               + sum(st.shape[m] * RANK * factor_bytes for m in range(n) if m != mode)
-              + ct.num_tasks * ct.chunk_shape[mode] * RANK * 4)
+              + out_rows(st, ct, mode) * RANK * 4)
     ops = live * RANK * (2 * (n - 1) + 1)
     return (*bound(nbytes, ops, I32_OPS), nbytes, ops)
 
@@ -664,7 +673,8 @@ def check_fixed_case(label, st, ct, dev, device, presets) -> int:
 
 def time_case(label, st, ct, dev, device, preset) -> None:
     """Per-mode kernel times of a case beside their bounds: the float kernel
-    and the fixed one with `preset`, each as the engines launch it."""
+    and the fixed one with `preset`, each as the engines launch it (adding
+    into the (I_pad, R) output)."""
     cs, tc, cr = ct.chunk_shape, dev["task_chunk"], dev["coords_rel"]
     nnz = dev["nnz_per_task"]
     factors = [rt.pad_factor(f, cs[m])
@@ -673,10 +683,14 @@ def time_case(label, st, ct, dev, device, preset) -> None:
     qfactors = [rt.pad_factor(f, cs[m]) for m, f in enumerate(qfactors)]
     live = int(torch.count_nonzero(qvalues))
     for mode in range(st.ndim):
-        ms = time_ms(lambda mode=mode: rt.mttkrp_local(
-            factors, tc, cr, dev["values"], mode=mode, chunk_shape=cs, nnz_per_task=nnz), 10)
-        fms = time_ms(lambda mode=mode: rt.mttkrp_fixed_local(
-            qfactors, tc, cr, qvalues, mode=mode, chunk_shape=cs, nnz_per_task=nnz, **q), 10)
+        out = torch.zeros((out_rows(st, ct, mode), RANK), device=device)
+        qout = torch.zeros((out_rows(st, ct, mode), RANK), dtype=torch.int32, device=device)
+        ms = time_ms(lambda mode=mode, out=out: rt.mttkrp_local(
+            factors, tc, cr, dev["values"], mode=mode, chunk_shape=cs, nnz_per_task=nnz,
+            out=out), 10)
+        fms = time_ms(lambda mode=mode, qout=qout: rt.mttkrp_fixed_local(
+            qfactors, tc, cr, qvalues, mode=mode, chunk_shape=cs, nnz_per_task=nnz, out=qout,
+            **q), 10)
         b, by, _, _ = kernel_bound(st, ct, mode)
         fb, fby, _, _ = fixed_kernel_bound(st, ct, mode, live, qfactors[0].element_size(),
                                            qvalues.element_size())
@@ -3656,8 +3670,8 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # 5. Timing at case (a)'s shapes: plain, global tier (the first
-    # design: no nnz_per_task), kernel as the engine launches it, in turns.
+    # 5. Timing at case (a)'s shapes: plain, global tier (no nnz_per_task),
+    # kernel as the engine launches it (into the (I_pad, R) output), in turns.
     factors = [rt.pad_factor(f, plan_a.chunk_shape[m])
                for m, f in enumerate(rt.init_factors(st_a.shape, RANK, seed=0, device=device))]
     tc, cr, vals, nnz = (dev_a["task_chunk"], dev_a["coords_rel"], dev_a["values"],
@@ -3674,13 +3688,14 @@ def main() -> int:
     modes = []
     for mode in range(st_a.ndim):
         g_plan = plan_of(st_a, ct_a, mode, tier="global")
+        out = torch.zeros((out_rows(st_a, ct_a, mode), RANK), device=device)
         times = in_turns(
             lambda mode=mode: kref.mttkrp_local_ref(factors, tc, cr, vals, mode=mode,
                                                     chunk_shape=cs),
-            lambda mode=mode: rt.mttkrp_local(factors, tc, cr, vals, mode=mode, chunk_shape=cs,
-                                              nnz_per_task=nnz),
-            lambda mode=mode, g_plan=g_plan: rt.mttkrp_local(factors, tc, cr, vals, mode=mode,
-                                                             chunk_shape=cs, plan=g_plan))
+            lambda mode=mode, out=out: rt.mttkrp_local(factors, tc, cr, vals, mode=mode,
+                                                       chunk_shape=cs, nnz_per_task=nnz, out=out),
+            lambda mode=mode, g_plan=g_plan, out=out: rt.mttkrp_local(
+                factors, tc, cr, vals, mode=mode, chunk_shape=cs, plan=g_plan, out=out))
         op = time_ms(lambda mode=mode: rt.mttkrp_kernel_op(
             factors, tc, cr, vals, mode=mode, chunk_shape=cs, out_dim=st_a.shape[mode],
             nnz_per_task=nnz), 10)
@@ -3699,13 +3714,15 @@ def main() -> int:
     fixed_modes = []
     for mode in range(st_a.ndim):
         g_plan = plan_of(st_a, ct_a, mode, fb, vb, tier="global")
+        qout = torch.zeros((out_rows(st_a, ct_a, mode), RANK), dtype=torch.int32, device=device)
         times = in_turns(
             lambda mode=mode: kref.mttkrp_fixed_local_ref(qpadded, tc, cr, qvalues, mode=mode,
                                                           chunk_shape=cs, **q),
-            lambda mode=mode: rt.mttkrp_fixed_local(qpadded, tc, cr, qvalues, mode=mode,
-                                                    chunk_shape=cs, nnz_per_task=nnz, **q),
-            lambda mode=mode, g_plan=g_plan: rt.mttkrp_fixed_local(
-                qpadded, tc, cr, qvalues, mode=mode, chunk_shape=cs, plan=g_plan, **q))
+            lambda mode=mode, qout=qout: rt.mttkrp_fixed_local(
+                qpadded, tc, cr, qvalues, mode=mode, chunk_shape=cs, nnz_per_task=nnz, out=qout,
+                **q),
+            lambda mode=mode, g_plan=g_plan, qout=qout: rt.mttkrp_fixed_local(
+                qpadded, tc, cr, qvalues, mode=mode, chunk_shape=cs, plan=g_plan, out=qout, **q))
         op = time_ms(lambda mode=mode: rt.mttkrp_fixed_kernel_op(
             qfactors, tc, cr, qvalues, mode=mode, chunk_shape=cs, out_dim=st_a.shape[mode],
             nnz_per_task=nnz, **q), 10)
@@ -3719,7 +3736,7 @@ def main() -> int:
               if not all(r["ms"] < r["global_ms"] for r in rows)]
     if slower:
         fail(f"at case (a) the {' and '.join(slower)} kernel is not faster than its global "
-             f"tier (the first design) in every mode")
+             f"tier in every mode")
     log(f"[5f] steady cp_als iteration at (a): fixed int7 {steady(fixed_iter_times):.3f} ms, "
         f"float kernel {steady(float_iter_times):.3f} ms")
 

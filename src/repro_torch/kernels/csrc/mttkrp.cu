@@ -1,13 +1,14 @@
-// Chunked spMTTKRP, float path: the per-task partial blocks, for Hopper (sm_90a).
+// Chunked spMTTKRP, float path, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/mttkrp_kernel.py::mttkrp_pallas_local
 // (body `_kernel`).  Same contract: for every task t and live slot p with a
 // nonzero value, multiply the value by the input-mode factor rows at
 // task_chunk[t, m] * S_m + coords_rel[t, p, m] (clamped to the factor's last
 // row), in mode order, and add the product into row coords_rel[t, p, mode]
-// of the task's private (S_mode, R) block.  Output: local (T, S_mode, R)
-// f32.  The global sum of the blocks stays outside, in PyTorch
-// (kernels/ref.py::reduce_local).
+// of the task's private (S_mode, R) block.  The TPU kernel returns those
+// blocks, local (T, S_mode, R) f32, and sums them outside; this one adds each
+// block straight into the (I_pad, R) output at rows task_chunk[t, mode] *
+// S_mode + [0, S_mode) (`direct`; the blocks themselves with direct = 0).
 //
 // Design (csrc/mttkrp_tiles.cuh).  The TPU kernel runs one grid step per
 // task, fetches each input mode's (S_m, R) block once through its
@@ -19,19 +20,21 @@
 // blocks in shared memory as long as the budget lasts (tier `staged`; tier
 // `accumulator` gathers them from L2), streams the task's coordinates and
 // values through a double-buffered `cp.async` ring, stops at the task's
-// live count `nnz_per_task[t]`, and writes the block once.  Threads walk
+// live count `nnz_per_task[t]`, and adds the block's non-zero entries into
+// the output once, with coalesced device atomics.  Threads walk
 // the (slot, r) pairs flattened, two at a time, so that no lane idles at
 // R = 10.  A shared-memory float atomicAdd is a compare-and-swap loop on
 // sm_90 (ATOMS.CAST.SPIN in the SASS), which retries whenever lanes of a
 // warp hit one address; mode 0 of a lexicographically sorted tensor puts
 // runs of ~12 consecutive slots on one output row, so where a block's first
 // tile shows such runs its threads sum each run in a register and issue
-// one atomic per run.  Tier `global` (nothing fits in shared memory) is the
-// first design: lane groups over r and one device-memory atomicAdd per
-// (nonzero, r), 769 M per mode at NELL-2's size.
+// one atomic per run.  Tier `global` (nothing fits in shared memory): lane
+// groups over r, one device-memory atomicAdd per run of slots on one output
+// row and per r (769 M per mode at NELL-2's size without runs); it is the
+// tier of FROSTT Delicious's three large modes.
 //
 // Bound.  Bytes: per live nonzero the coordinates and value are read once
-// (16 B at N = 3), each input factor once, each block written once: 0.42–
+// (16 B at N = 3), each input factor once, the output written once: 0.42–
 // 0.46 ms per mode at NELL-2's published size (76.9 M nonzeros, R = 10,
 // the 256 KiB plan) at 3.35 TB/s.  The (N-1)·R multiplies and R adds per
 // nonzero are far below the card's float32 rate.  What keeps the task
@@ -67,16 +70,17 @@ struct FloatPolicy {
 extern "C" {
 
 // Launches tier `tier` (0 global, 1 accumulator, 2 staged) on `stream`;
-// `chunk` is the host's (N,) int64 chunk shape.  Returns a cudaError_t
-// (0 = launched) or -1 when `smem_bytes` disagrees with the kernel's
-// layout.  Allocates nothing and does not synchronise.
+// `chunk` is the host's (N,) int64 chunk shape; `direct` 1 adds into the
+// zero-filled (I_pad, R) output, 0 gives the (T, S_mode, R) blocks.
+// Returns a cudaError_t (0 = launched) or -1 when `smem_bytes` disagrees
+// with the kernel's layout.  Allocates nothing and does not synchronise.
 int prism_mttkrp_local_f32(const void* task_chunk, const void* coords_rel, const void* values,
-                           const void* meta, const void* nnz_per_task, void* local, long long T,
+                           const void* meta, const void* nnz_per_task, void* out, long long T,
                            long long P, int N, int R, int mode, const long long* chunk, int tier,
-                           long long bpt, unsigned staged_mask, long long smem_bytes,
+                           long long bpt, unsigned staged_mask, long long smem_bytes, int direct,
                            void* stream) {
-    return prism::launch(task_chunk, coords_rel, values, meta, nnz_per_task, local, T, P, N, R,
-                         mode, chunk, tier, bpt, staged_mask, smem_bytes, FloatPolicy{},
+    return prism::launch(task_chunk, coords_rel, values, meta, nnz_per_task, out, T, P, N, R,
+                         mode, chunk, tier, bpt, staged_mask, smem_bytes, direct, FloatPolicy{},
                          static_cast<cudaStream_t>(stream));
 }
 

@@ -1,5 +1,5 @@
-// Chunked spMTTKRP, fixed point (paper Algorithm 2): the per-task int32
-// partial blocks, for Hopper (sm_90a).
+// Chunked spMTTKRP, fixed point (paper Algorithm 2), int32 sums, for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel
 // src/repro/kernels/mttkrp_fixed_kernel.py::mttkrp_fixed_pallas_local (body
@@ -10,15 +10,18 @@
 // `>> matrix_frac` follows each multiply, in mode order; then `* qvalue` and
 // `>> (value_frac + prec_shift)`; the result is added into row
 // coords_rel[t, p, mode] of the task's (S_mode, R) int32 block (rows outside
-// [0, S_mode) are dropped).  Output: local (T, S_mode, R) int32; the global
-// sum stays in PyTorch (kernels/ref.py::reduce_local).
+// [0, S_mode) are dropped).  The TPU kernel returns those blocks, local
+// (T, S_mode, R) int32; this one adds each straight into the (I_pad, R)
+// int32 output at rows task_chunk[t, mode] * S_mode + [0, S_mode) (`direct`;
+// the blocks themselves with direct = 0).
 //
 // Arithmetic.  XLA's int32 multiply wraps, and signed overflow is undefined
 // in C++, so every product is formed in uint32_t and cast back to int32_t
 // (two's complement, as nvcc defines it) before the shift, which is
 // arithmetic on signed ints.  Integer addition is associative modulo 2^32,
-// so the blocks equal the plain version's bit for bit in any order, in
-// shared memory and across the blocks that share a task alike.  A slot
+// so the output equals the plain version's bit for bit in any order, in
+// shared memory, across the blocks that share a task and across the tasks
+// that share an output row alike.  A slot
 // whose qvalue is 0 (padding, or a value that quantized to 0) is skipped:
 // its partial is 0 * x >> k = 0.
 //
@@ -30,12 +33,12 @@
 // the input factor blocks at their storage width (int8 for Q5.3, int16 for
 // Q9.7, int32 for Q17.15) as long as the budget lasts, streams coordinates
 // and qvalues (int16 or int32) through a cp.async ring and stops at the
-// task's live count; tier `global` is the first design (one int32
-// atomicAdd in device memory per (nonzero, r)).
+// task's live count; tier `global` adds one int32 atomicAdd in device
+// memory per run of slots on one output row and per r.
 //
 // Bound.  Per live nonzero, 4·N bytes of coordinates and 2 of qvalue are
 // read once, plus the input factors at their storage width and the
-// (T, S_mode, R) int32 blocks written once.  At NELL-2's published size
+// (I_pad, R) int32 output written once.  At NELL-2's published size
 // (76.9 M nonzeros, R = 10, the 256 KiB plan) that is about 1.3 GB per mode,
 // 0.40 ms at 3.35 TB/s; coordinates are 12 of the 14 bytes per nonzero.  The
 // integer work, (2·(N-1) + 1)·R multiplies, shifts and adds per nonzero
@@ -82,7 +85,7 @@ struct FixedPolicy {
 
 struct Args {
     const void *task_chunk, *coords_rel, *qvalues, *meta, *nnz_per_task;
-    void* local;
+    void* out;
     long long T, P;
     int N, R, mode;
     const long long* chunk;
@@ -90,14 +93,16 @@ struct Args {
     long long bpt;
     unsigned staged_mask;
     long long smem_bytes;
+    int direct;
     cudaStream_t stream;
 };
 
 template <typename F, typename V>
 int launch_typed(const Args& a, int matrix_frac, int out_shift) {
-    return prism::launch(a.task_chunk, a.coords_rel, a.qvalues, a.meta, a.nnz_per_task, a.local,
+    return prism::launch(a.task_chunk, a.coords_rel, a.qvalues, a.meta, a.nnz_per_task, a.out,
                          a.T, a.P, a.N, a.R, a.mode, a.chunk, a.tier, a.bpt, a.staged_mask,
-                         a.smem_bytes, FixedPolicy<F, V>{matrix_frac, out_shift}, a.stream);
+                         a.smem_bytes, a.direct, FixedPolicy<F, V>{matrix_frac, out_shift},
+                         a.stream);
 }
 
 template <typename F>
@@ -118,18 +123,19 @@ extern "C" {
 
 // Launches tier `tier` (0 global, 1 accumulator, 2 staged) on `stream` for
 // factors stored in `factor_bytes` (1, 2 or 4) and qvalues in `value_bytes`
-// (2 or 4); `chunk` is the host's (N,) int64 chunk shape and out_shift =
-// value_frac + prec_shift.  Returns a cudaError_t (0 = launched) or -1
-// when `smem_bytes` disagrees with the kernel's layout.  Allocates nothing
-// and does not synchronise.
+// (2 or 4); `chunk` is the host's (N,) int64 chunk shape, `direct` as in
+// csrc/mttkrp.cu and out_shift = value_frac + prec_shift.  Returns a
+// cudaError_t (0 = launched) or -1 when `smem_bytes` disagrees with the
+// kernel's layout.  Allocates nothing and does not synchronise.
 int prism_mttkrp_fixed_local(const void* task_chunk, const void* coords_rel, const void* qvalues,
-                             const void* meta, const void* nnz_per_task, void* local, long long T,
+                             const void* meta, const void* nnz_per_task, void* out, long long T,
                              long long P, int N, int R, int mode, const long long* chunk,
                              int tier, long long bpt, unsigned staged_mask, long long smem_bytes,
-                             int matrix_frac, int out_shift, int factor_bytes, int value_bytes,
-                             void* stream) {
-    const Args a{task_chunk, coords_rel, qvalues, meta, nnz_per_task, local, T, P, N, R, mode,
-                 chunk, tier, bpt, staged_mask, smem_bytes, static_cast<cudaStream_t>(stream)};
+                             int direct, int matrix_frac, int out_shift, int factor_bytes,
+                             int value_bytes, void* stream) {
+    const Args a{task_chunk, coords_rel, qvalues, meta, nnz_per_task, out, T, P, N, R, mode,
+                 chunk, tier, bpt, staged_mask, smem_bytes, direct,
+                 static_cast<cudaStream_t>(stream)};
     switch (factor_bytes) {
         case 1:
             return launch_values<int8_t>(value_bytes, a, matrix_frac, out_shift);

@@ -11,8 +11,12 @@
 // the task's (S_mode, R) block, and dropped when that row is outside
 // [0, S_mode).  Slots whose value is 0 add nothing and are skipped.  A slot
 // at or past nnz_per_task[t] (when given) is not read: the caller
-// guarantees it holds 0.  Output: local (T, S_mode, R); the global sum of
-// the blocks stays in PyTorch (kernels/ref.py::reduce_local).
+// guarantees it holds 0.  Output, by `direct`: 1, the (I_pad, R) MTTKRP
+// itself, block t added into rows task_chunk[t, mode] * S_mode + [0, S_mode)
+// of a zero-filled output (what kernels/ops.py launches); 0, the per-task
+// partials local (T, S_mode, R), block t at rows t * S_mode + [0, S_mode)
+// (the plain version's contract, kernels/ref.py::mttkrp_local_ref, whose
+// global sum is kernels/ref.py::reduce_local).
 //
 // Three tiers, chosen on the host from the shapes by
 // kernels/tiles.py::plan_launch, which mirrors `task_smem_bytes` below:
@@ -26,9 +30,10 @@
 //                clamped row from device memory, as the plain version does.
 //   accumulator  the same without staged factor blocks: rows are gathered
 //                from device memory (they sit in L2).
-//   global       nothing fits: the first design, lanes grouped over r,
-//                one device-memory atomic per (nonzero, r) into a
-//                zero-filled output.
+//   global       nothing fits: lanes grouped over r, each group walking a
+//                contiguous share of the slots and adding its partials into
+//                the zero-filled output with device-memory atomics, one per
+//                run of slots that share an output row and per r.
 //
 // In the two task tiers the task's coordinates and values stream through a
 // double-buffered ring in shared memory with 16-byte `cp.async` copies, so
@@ -40,12 +45,14 @@
 // cross a page; `cp.async.bulk` (TMA's 1-D form) would also need the
 // size to be a multiple of 16 and an mbarrier per stage for no gain here.
 // Threads walk the (slot, r) pairs of a tile flattened, so at R = 10 no
-// lane idles.  With one block per task the block writes its whole
-// accumulator once with coalesced stores, zero rows included (the output
-// may be uninitialised); with several blocks per task each adds its
-// accumulator into a zero-filled output with device-memory atomics, which
-// keeps the fixed-point kernel bit-exact (int32 addition is associative
-// modulo 2^32).
+// lane idles.  At the end a block adds the non-zero entries of its
+// accumulator into the zero-filled output with device-memory atomics,
+// coalesced, at its task's rows; only the partials output of a task that one
+// block owns is written whole with stores instead (zero rows included: that
+// output may be uninitialised).  Device atomics keep the fixed-point kernel
+// bit-exact (int32 addition is associative modulo 2^32).  The direct output
+// takes the place of the (T, S_mode, R) partials and their sum, which at
+// FROSTT Delicious's size would be 738-858 GB a mode.
 
 #pragma once
 
@@ -143,9 +150,9 @@ task_kernel(const int32_t* __restrict__ task_chunk,              // (T, N)
             const typename Pol::Value* __restrict__ values,      // (T, P)
             const long long* __restrict__ meta,                  // (3, N)
             const int32_t* __restrict__ nnz_per_task,            // (T,) or null
-            typename Pol::Acc* __restrict__ local,               // (T, S_mode, R)
+            typename Pol::Acc* __restrict__ out,                 // (I_pad or T*S_mode, R)
             long long P, int n_modes, int R, int mode, int bpt, unsigned staged_mask,
-            Pol pol) {
+            int direct, Pol pol) {
     using F = typename Pol::Factor;
     using V = typename Pol::Value;
     using A = typename Pol::Acc;
@@ -159,7 +166,8 @@ task_kernel(const int32_t* __restrict__ task_chunk,              // (T, N)
     const long long span = (live + bpt - 1) / bpt;
     const long long s_begin = part * span;
     const long long s_end = min_ll(live, s_begin + span);
-    if (bpt > 1 && s_begin >= s_end) return;  // adds nothing to the zero-filled output
+    const bool adds = direct || bpt > 1;  // into a zero-filled output
+    if (adds && s_begin >= s_end) return;  // adds nothing
 
     ModeInfo* tab = reinterpret_cast<ModeInfo*>(smem);
     const long long stage_c = ring_coord_bytes(N);
@@ -323,28 +331,36 @@ task_kernel(const int32_t* __restrict__ task_chunk,              // (T, N)
     }
 
     __syncthreads();
-    A* out = local + t * n_acc;
-    if (bpt == 1) {
-        for (int i = threadIdx.x; i < n_acc; i += kThreads) out[i] = acc[i];
+    // tab[mode].base is the task's first output row, task_chunk[t, mode] * S_mode
+    A* dst = out + (direct ? tab[mode].base : t * s_out) * R;
+    if (!adds) {
+        for (int i = threadIdx.x; i < n_acc; i += kThreads) dst[i] = acc[i];
     } else {
         for (int i = threadIdx.x; i < n_acc; i += kThreads)
-            if (acc[i] != A(0)) atomicAdd(out + i, acc[i]);
+            if (acc[i] != A(0)) atomicAdd(dst + i, acc[i]);
     }
 }
 
-// Global tier: the first design.  The grid is (task, tile of
-// kGlobalTile slots) flattened; lanes are cut into groups of `group` =
-// min(32, next power of two >= R), a group takes one slot at a time and
-// its lanes walk r; every partial goes to device memory with atomicAdd into
-// a zero-filled output.  Rows are read by index from device memory.
+// Global tier.  The grid is (task, tile of kGlobalTile slots) flattened;
+// lanes are cut into groups of `group` = min(32, next power of two >= R),
+// and each group walks a contiguous share of the tile's slots, its lanes
+// over r (r = lane, lane + group, ...).  Rows are read by index from device
+// memory.  A lane sums the partials of consecutive slots that share an
+// output row in a register and adds the run into the zero-filled output with
+// one device atomic where the row changes: under a Zipf pattern one row can
+// hold a quarter of a mode's nonzeros, and each atomic on it waits for the
+// last at the same address.  The slots keep the tensor's lexicographic order
+// inside a task, so the hot row of mode m forms runs wherever the modes
+// before m repeat.
 template <class Pol>
 __global__ void __launch_bounds__(kGlobalThreads)
 global_kernel(const int32_t* __restrict__ task_chunk, const int32_t* __restrict__ coords_rel,
               const typename Pol::Value* __restrict__ values, const long long* __restrict__ meta,
-              const int32_t* __restrict__ nnz_per_task, typename Pol::Acc* __restrict__ local,
+              const int32_t* __restrict__ nnz_per_task, typename Pol::Acc* __restrict__ out,
               long long P, int N, int R, int mode, long long tiles_per_task, int group,
-              Pol pol) {
+              int direct, Pol pol) {
     using F = typename Pol::Factor;
+    using A = typename Pol::Acc;
     extern __shared__ long long smeta[];
     for (int i = threadIdx.x; i < 3 * N; i += blockDim.x) smeta[i] = meta[i];
     __syncthreads();
@@ -356,18 +372,23 @@ global_kernel(const int32_t* __restrict__ task_chunk, const int32_t* __restrict_
     const long long p_end = min_ll(live, p_begin + kGlobalTile);
     const int lane = threadIdx.x % group;
     const int n_groups = blockDim.x / group;
+    const long long span = (max_ll(0, p_end - p_begin) + n_groups - 1) / n_groups;
+    const long long g_begin = p_begin + (threadIdx.x / group) * span;
+    const long long g_end = min_ll(p_end, g_begin + span);
     const long long s_out = smeta[2 * N + mode];
     const int32_t* tc = task_chunk + t * N;
-    typename Pol::Acc* out = local + t * s_out * R;
+    A* dst = out + (direct ? static_cast<long long>(tc[mode]) * s_out : t * s_out) * R;
 
-    for (long long p = p_begin + threadIdx.x / group; p < p_end; p += n_groups) {
-        const long long e = t * P + p;
-        const auto v = values[e];
-        if (v == 0) continue;
-        const int32_t* c = coords_rel + e * N;
-        const long long co = c[mode];
-        if (co < 0 || co >= s_out) continue;  // dropped, as the scatter drops it
-        for (int r = lane; r < R; r += group) {
+    for (int r = lane; r < R; r += group) {
+        A run = A(0);
+        long long run_row = -1;
+        for (long long p = g_begin; p < g_end; ++p) {
+            const long long e = t * P + p;
+            const auto v = values[e];
+            if (v == 0) continue;
+            const int32_t* c = coords_rel + e * N;
+            const long long co = c[mode];
+            if (co < 0 || co >= s_out) continue;  // dropped, as the scatter drops it
             auto acc = pol.begin(v);
             bool first = true;
             for (int m = 0; m < N; ++m) {
@@ -378,21 +399,29 @@ global_kernel(const int32_t* __restrict__ task_chunk, const int32_t* __restrict_
                 acc = pol.mul(acc, Pol::widen(__ldg(f + row * R + r)), first);
                 first = false;
             }
-            atomicAdd(out + co * R + r, pol.finish(acc, v));
+            const A partial = pol.finish(acc, v);
+            if (co == run_row) {
+                run = pol.add(run, partial);
+            } else {
+                if (run_row >= 0) atomicAdd(dst + run_row * R + r, run);
+                run = partial;
+                run_row = co;
+            }
         }
+        if (run_row >= 0) atomicAdd(dst + run_row * R + r, run);
     }
 }
 
 // Launches one tier on `stream`.  `chunk` (host, N int64) is the chunk
 // shape; `smem_bytes` is the host plan's dynamic shared memory, held here
-// against the kernel's own layout (kLayoutMismatch when they differ).
-// Returns a cudaError_t (0 = launched); allocates nothing, does not
-// synchronise.
+// against the kernel's own layout (kLayoutMismatch when they differ);
+// `direct` picks the output (see the contract above).  Returns a
+// cudaError_t (0 = launched); allocates nothing, does not synchronise.
 template <class Pol>
 int launch(const void* task_chunk, const void* coords_rel, const void* values, const void* meta,
-           const void* nnz_per_task, void* local, long long T, long long P, int N, int R,
+           const void* nnz_per_task, void* out, long long T, long long P, int N, int R,
            int mode, const long long* chunk, int tier, long long bpt, unsigned staged_mask,
-           long long smem_bytes, Pol pol, cudaStream_t stream) {
+           long long smem_bytes, int direct, Pol pol, cudaStream_t stream) {
     using V = typename Pol::Value;
     using A = typename Pol::Acc;
     const auto* tc = static_cast<const int32_t*>(task_chunk);
@@ -400,7 +429,7 @@ int launch(const void* task_chunk, const void* coords_rel, const void* values, c
     const auto* vals = static_cast<const V*>(values);
     const auto* mt = static_cast<const long long*>(meta);
     const auto* nnz = static_cast<const int32_t*>(nnz_per_task);
-    auto* out = static_cast<A*>(local);
+    auto* dst = static_cast<A*>(out);
     if (tier == kGlobal) {
         int group = 1;
         while (group < R && group < 32) group *= 2;
@@ -411,7 +440,7 @@ int launch(const void* task_chunk, const void* coords_rel, const void* values, c
         if (smem_bytes != 3LL * N * static_cast<long long>(sizeof(long long)))
             return kLayoutMismatch;
         global_kernel<Pol><<<static_cast<unsigned>(blocks), kGlobalThreads, smem_bytes, stream>>>(
-            tc, cr, vals, mt, nnz, out, P, N, R, mode, tiles, group, pol);
+            tc, cr, vals, mt, nnz, dst, P, N, R, mode, tiles, group, direct, pol);
         return static_cast<int>(cudaGetLastError());
     }
     if (tier != kAccumulator && tier != kStaged) return static_cast<int>(cudaErrorInvalidValue);
@@ -437,7 +466,8 @@ int launch(const void* task_chunk, const void* coords_rel, const void* values, c
         }
     }
     kernel<<<static_cast<unsigned>(blocks), kThreads, smem_bytes, stream>>>(
-        tc, cr, vals, mt, nnz, out, P, N, R, mode, static_cast<int>(bpt), staged_mask, pol);
+        tc, cr, vals, mt, nnz, dst, P, N, R, mode, static_cast<int>(bpt), staged_mask, direct,
+        pol);
     return static_cast<int>(cudaGetLastError());
 }
 

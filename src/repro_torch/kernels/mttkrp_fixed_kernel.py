@@ -1,11 +1,13 @@
-"""Fixed-point chunked spMTTKRP per-task partials (paper Alg. 2) through the
-hand-written CUDA kernel `csrc/mttkrp_fixed.cu`, the port of the TPU kernel
+"""Fixed-point chunked spMTTKRP (paper Alg. 2) through the hand-written CUDA
+kernel `csrc/mttkrp_fixed.cu`, the port of the TPU kernel
 `repro.kernels.mttkrp_fixed_kernel.mttkrp_fixed_pallas_local`.
 
 `mttkrp_fixed_local` launches the kernel for CUDA tensors, in the tier that
 `tiles.plan_launch` picks, and raises if it cannot; for CPU tensors it runs
-the plain version, `ref.mttkrp_fixed_local_ref`.  `launches` counts kernel
-launches (plain-version calls are not counted).
+the plain version, `ref.mttkrp_fixed_local_ref`.  It returns the per-task
+(T, S_mode, R) int32 partials, or, given `out`, adds the MTTKRP straight
+into that (I_pad, R) int32 output (what `ops.py` runs).  `launches` counts
+kernel launches (plain-version calls are not counted).
 """
 from __future__ import annotations
 
@@ -80,9 +82,12 @@ def _check(qfactors, task_chunk, coords_rel, qvalues, mode, chunk_shape,
 def mttkrp_fixed_local(qfactors, task_chunk, coords_rel, qvalues, *, mode: int,
                        chunk_shape: tuple[int, ...], matrix_frac: int, value_frac: int,
                        prec_shift: int = 0, nnz_per_task: torch.Tensor | None = None,
-                       plan: tiles.LaunchPlan | None = None) -> torch.Tensor:
+                       plan: tiles.LaunchPlan | None = None,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
     """Fixed-point per-task partials: returns (T, S_mode, R) int32 chunk-local
-    blocks in Q(·, matrix_frac - prec_shift).
+    blocks in Q(·, matrix_frac - prec_shift), or, given `out`, adds block t
+    into out's rows task_chunk[t, mode]·S_mode + [0, S_mode) (int32, wrapping)
+    and returns `out`.
 
     qfactors    : sequence of (rows_m, R), all int8, int16 or int32 (by preset;
                   ops.py pads rows to whole chunks)
@@ -93,13 +98,17 @@ def mttkrp_fixed_local(qfactors, task_chunk, coords_rel, qvalues, *, mode: int,
                   The plain version ignores it.
     plan        : a `tiles.plan_launch` result to launch instead of the one
                   chosen from the shapes and the card's shared memory.
+    out         : optional (I_pad, R) int32, I_pad a multiple of S_mode past
+                  every task's chunk; the sums are added to what it holds.
     """
     global launches
     if coords_rel.device.type == "cpu":
-        return ref.mttkrp_fixed_local_ref(
+        local = ref.mttkrp_fixed_local_ref(
             qfactors, task_chunk, coords_rel, qvalues, mode=mode, chunk_shape=chunk_shape,
             matrix_frac=matrix_frac, value_frac=value_frac, prec_shift=prec_shift,
             nnz_per_task=nnz_per_task)
+        return local if out is None else out.add_(ref.reduce_local(
+            local, task_chunk, mode=mode, chunk_shape=chunk_shape, out_dim=out.shape[0]))
     if coords_rel.device.type != "cuda":
         raise ValueError(f"no kernel for device {coords_rel.device}")
     _check(qfactors, task_chunk, coords_rel, qvalues, mode, chunk_shape,
@@ -108,22 +117,24 @@ def mttkrp_fixed_local(qfactors, task_chunk, coords_rel, qvalues, *, mode: int,
     t, p, n = coords_rel.shape
     rank = qfactors[0].shape[1]
     device = coords_rel.device
+    if out is not None:
+        tiles.check_out(out, torch.int32, chunk_shape[mode], rank, device)
     shape = (t, chunk_shape[mode], rank)
     if t == 0 or p == 0 or rank == 0:
-        return torch.zeros(shape, dtype=torch.int32, device=device)
+        return torch.zeros(shape, dtype=torch.int32, device=device) if out is None else out
     factor_bytes, value_bytes = qfactors[0].element_size(), qvalues.element_size()
     if plan is None:
         plan = tiles.plan_launch(t, p, chunk_shape, mode, rank, factor_bytes=factor_bytes,
                                  value_bytes=value_bytes, smem_budget=tiles.device_budget(device))
     lib, fn = _entry()
-    local = tiles.new_output(plan, shape, torch.int32, device)
+    dst = tiles.new_output(plan, shape, torch.int32, device) if out is None else out
     meta, *launch = tiles.launch_args(qfactors, mode, chunk_shape, plan, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(task_chunk.data_ptr(), coords_rel.data_ptr(), qvalues.data_ptr(),
                 meta.data_ptr(), 0 if nnz_per_task is None else nnz_per_task.data_ptr(),
-                local.data_ptr(), t, p, n, rank, mode, *launch, matrix_frac,
-                value_frac + prec_shift, factor_bytes, value_bytes, stream)
+                dst.data_ptr(), t, p, n, rank, mode, *launch, int(out is not None),
+                matrix_frac, value_frac + prec_shift, factor_bytes, value_bytes, stream)
     tiles.raise_on(rc, lib, "mttkrp_fixed", plan)
     launches += 1
-    return local
+    return dst

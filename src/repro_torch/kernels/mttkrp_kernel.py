@@ -1,13 +1,14 @@
-"""Chunked spMTTKRP per-task partials through the hand-written CUDA kernel
-`csrc/mttkrp.cu`, the port of the TPU kernel
-`repro.kernels.mttkrp_kernel.mttkrp_pallas_local`.
+"""Chunked spMTTKRP through the hand-written CUDA kernel `csrc/mttkrp.cu`,
+the port of the TPU kernel `repro.kernels.mttkrp_kernel.mttkrp_pallas_local`.
 
 `mttkrp_local` launches the kernel for CUDA tensors, in the tier that
 `tiles.plan_launch` picks from the shapes and the card's shared memory,
 and raises if it cannot (a refused launch never falls back to another tier
 or to the plain version); for CPU tensors it runs the plain version,
-`ref.mttkrp_local_ref`.  `launches` counts kernel launches (plain-version
-calls are not counted).
+`ref.mttkrp_local_ref`.  It returns the per-task (T, S_mode, R) partials of
+the TPU kernel's contract, or, given `out`, adds the MTTKRP straight into
+that (I_pad, R) output (what `ops.py` runs).  `launches` counts kernel
+launches (plain-version calls are not counted).
 """
 from __future__ import annotations
 
@@ -67,8 +68,11 @@ def _check(factors, task_chunk, coords_rel, values, mode, chunk_shape):
 
 def mttkrp_local(factors, task_chunk, coords_rel, values, *, mode: int,
                  chunk_shape: tuple[int, ...], nnz_per_task: torch.Tensor | None = None,
-                 plan: tiles.LaunchPlan | None = None) -> torch.Tensor:
-    """Per-task partial MTTKRP: returns (T, S_mode, R) f32 chunk-local blocks.
+                 plan: tiles.LaunchPlan | None = None,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-task partial MTTKRP: returns (T, S_mode, R) f32 chunk-local blocks,
+    or, given `out`, adds block t into out's rows task_chunk[t, mode]·S_mode
+    + [0, S_mode) and returns `out`.
 
     factors     : sequence of (rows_m, R) f32 (ops.py pads rows to whole chunks)
     task_chunk  : (T, N) int32; coords_rel: (T, P, N) int32; values: (T, P) f32.
@@ -77,11 +81,15 @@ def mttkrp_local(factors, task_chunk, coords_rel, values, *, mode: int,
                   The plain version ignores it.
     plan        : a `tiles.plan_launch` result to launch instead of the one
                   chosen from the shapes and the card's shared memory.
+    out         : optional (I_pad, R) f32, I_pad a multiple of S_mode past every
+                  task's chunk; the sums are added to what it holds.
     """
     global launches
     if coords_rel.device.type == "cpu":
-        return ref.mttkrp_local_ref(factors, task_chunk, coords_rel, values, mode=mode,
-                                    chunk_shape=chunk_shape, nnz_per_task=nnz_per_task)
+        local = ref.mttkrp_local_ref(factors, task_chunk, coords_rel, values, mode=mode,
+                                     chunk_shape=chunk_shape, nnz_per_task=nnz_per_task)
+        return local if out is None else out.add_(ref.reduce_local(
+            local, task_chunk, mode=mode, chunk_shape=chunk_shape, out_dim=out.shape[0]))
     if coords_rel.device.type != "cuda":
         raise ValueError(f"no kernel for device {coords_rel.device}")
     _check(factors, task_chunk, coords_rel, values, mode, chunk_shape)
@@ -89,20 +97,22 @@ def mttkrp_local(factors, task_chunk, coords_rel, values, *, mode: int,
     t, p, n = coords_rel.shape
     rank = factors[0].shape[1]
     device = coords_rel.device
+    if out is not None:
+        tiles.check_out(out, torch.float32, chunk_shape[mode], rank, device)
     shape = (t, chunk_shape[mode], rank)
     if t == 0 or p == 0 or rank == 0:
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+        return torch.zeros(shape, dtype=torch.float32, device=device) if out is None else out
     if plan is None:
         plan = tiles.plan_launch(t, p, chunk_shape, mode, rank,
                                  smem_budget=tiles.device_budget(device))
     lib, fn = _entry()
-    local = tiles.new_output(plan, shape, torch.float32, device)
+    dst = tiles.new_output(plan, shape, torch.float32, device) if out is None else out
     meta, *launch = tiles.launch_args(factors, mode, chunk_shape, plan, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(task_chunk.data_ptr(), coords_rel.data_ptr(), values.data_ptr(),
                 meta.data_ptr(), 0 if nnz_per_task is None else nnz_per_task.data_ptr(),
-                local.data_ptr(), t, p, n, rank, mode, *launch, stream)
+                dst.data_ptr(), t, p, n, rank, mode, *launch, int(out is not None), stream)
     tiles.raise_on(rc, lib, "mttkrp", plan)
     launches += 1
-    return local
+    return dst

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the kernels' contracts (counterpart of
 `repro.kernels.ref`): per-task (T, S_mode, R) partial blocks before the
-global sum, float and fixed point, that global sum, the pseudo-inverse
+global sum, float and fixed point, that global sum (which the kernels' direct
+output takes in place of the blocks), the pseudo-inverse
 of CP-ALS's Gram Hadamard products, and the sum of squares of the fit's
 ||X||².  The CPU path runs them; on the card they are what the CUDA kernels
 are held against.

@@ -10,8 +10,13 @@ Tiers (see the header's notes):
                shared memory and stages the input modes' (S_m, R) factor
                blocks there, in mode order, as long as the budget lasts;
   accumulator  only the (S_mode, R) block fits: rows come from L2;
-  global       not even that fits: one device-memory atomic per
-               (nonzero, r), the first design.
+  global       not even that fits: one device-memory atomic per run of
+               slots on one output row and per r.
+
+Every tier adds its sums straight into the (I_pad, R) output that
+`kernels/ops.py` zero-fills (`direct`), at rows task_chunk[t, mode]·S_mode
++ [0, S_mode); the per-task (T, S_mode, R) partials of the plain version's
+contract are the other output (`new_output`, without `direct`).
 """
 from __future__ import annotations
 
@@ -51,9 +56,10 @@ class LaunchPlan:
 
     @property
     def zero_filled(self) -> bool:
-        """Whether the output must start at zero: the kernel adds into it
-        (global tier, or a task split across blocks) instead of writing
-        every block once."""
+        """Whether the (T, S_mode, R) partials output must start at zero:
+        the kernel adds into it (global tier, or a task split across
+        blocks) instead of writing every block once.  The direct output
+        always starts at zero."""
         return self.tier == "global" or self.blocks_per_task > 1
 
 
@@ -157,9 +163,24 @@ def launch_args(factors, mode: int, chunk_shape, plan: LaunchPlan, device) -> tu
 
 
 def new_output(plan: LaunchPlan, shape, dtype, device) -> torch.Tensor:
-    """The (T, S_mode, R) output: zero-filled where the kernel adds into it,
-    else left for the kernel to write whole."""
+    """The (T, S_mode, R) partials output: zero-filled where the kernel adds
+    into it, else left for the kernel to write whole."""
     return (torch.zeros if plan.zero_filled else torch.empty)(shape, dtype=dtype, device=device)
+
+
+def check_out(out: torch.Tensor, dtype, s_mode: int, rank: int, device) -> None:
+    """The direct output: (rows, R), a whole number of S_mode-row chunks,
+    contiguous, of `dtype` on `device`.  The caller guarantees that every
+    task_chunk[:, mode] < rows / S_mode (reading it would wait on the card)."""
+    if out.device != device:
+        raise ValueError(f"out is on {out.device}, coords_rel on {device}")
+    if out.dtype != dtype:
+        raise TypeError(f"out must be {dtype}; got {out.dtype}")
+    if out.dim() != 2 or out.shape[1] != rank or out.shape[0] % s_mode:
+        raise ValueError(f"out must be (a multiple of {s_mode} rows, {rank}); got "
+                         f"{tuple(out.shape)}")
+    if not out.is_contiguous():
+        raise ValueError("out must be contiguous")
 
 
 def raise_on(rc: int, lib, name: str, plan: LaunchPlan) -> None:
@@ -175,8 +196,8 @@ def entry_argtypes(n_trailing_ints: int) -> list:
     """ctypes argument types of a C entry: the device addresses of
     task_chunk, coords_rel, values, meta, nnz_per_task (or null) and the
     output; T, P; N, R, mode; the host chunk shape; tier, blocks per task,
-    staged mask, smem bytes; `n_trailing_ints` ints; the stream."""
+    staged mask, smem bytes; direct; `n_trailing_ints` ints; the stream."""
     return ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_longlong,
-               ctypes.c_uint, ctypes.c_longlong] + [ctypes.c_int] * n_trailing_ints
-            + [ctypes.c_void_p])
+               ctypes.c_uint, ctypes.c_longlong, ctypes.c_int]
+            + [ctypes.c_int] * n_trailing_ints + [ctypes.c_void_p])

@@ -65,6 +65,17 @@ def test_init_factors_byte_identical():
         assert g.numpy().tobytes() == np.asarray(w).tobytes()
 
 
+def test_init_factors_byte_identical_across_draw_slices():
+    """Factors longer than the draw's scratch, and a mode that starts in the
+    middle of a slice of the stream, draw the reference's bits."""
+    from repro_torch.core import cpals as port_cpals
+
+    shape = (port_cpals._DRAW_SLICE // 4 + 3, 70_001, 5)
+    got = rt.init_factors(shape, 4, seed=2**40 + 3, device="cpu")
+    for g, w in zip(got, init_factors(shape, 4, seed=2**40 + 3), strict=True):
+        assert g.shape == w.shape and g.numpy().tobytes() == np.asarray(w).tobytes()
+
+
 def test_pinv_cutoff_matches_jax():
     """A singular value between torch's default cutoff and jnp's is dropped,
     as jnp.linalg.pinv drops it."""

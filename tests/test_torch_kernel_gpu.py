@@ -406,6 +406,121 @@ def test_kernels_on_runs_of_equal_output_rows(cuda, kind, rank):
 
 
 # ---------------------------------------------------------------------------
+# The direct output: every tier adds into the (I_pad, R) MTTKRP itself
+# ---------------------------------------------------------------------------
+
+DIRECT_CASES = {
+    # a 4-mode Zipf(1.3) tensor: row 0 of each mode holds up to a quarter of it
+    "four-mode-hot-row": ((60, 400, 200, 30), 6000, (16, 64, 32, 30), 64, 10, "powerlaw"),
+    # 3,375 chunks of 16 slots: more tasks than MIN_BLOCKS, many on each output row
+    "more-tasks-than-min-blocks": ((120, 120, 120), 20_000, (8, 8, 8), 16, 10, "uniform"),
+    # one task: the task tiers split it over blocks, the global tier over tiles
+    "split-tasks": ((300, 200, 400), 100_000, (300, 200, 400), None, 10, "uniform"),
+}
+
+
+def _direct_pair(kind, factors, ct, dev, mode, tier, base):
+    """(kernel, plain, Σ|terms|, plan) of one mode's direct output added into
+    `base`, the kernel launched in `tier` through `out=` (fixed: int15-12,
+    the fixed cells' format), the plain version as the summed per-task
+    partials (`reduce_local(mttkrp_local_ref(...))`) plus `base`."""
+    args = (dev["task_chunk"], dev["coords_rel"])
+    cs, nnz, rank = ct.chunk_shape, dev["nnz_per_task"], base.shape[1]
+    rows = base.shape[0]
+
+    def summed(local):
+        return pref.reduce_local(local, dev["task_chunk"], mode=mode, chunk_shape=cs,
+                                 out_dim=rows)
+
+    if kind == "float":
+        fs = [rt.pad_factor(f, cs[m]) for m, f in enumerate(factors)]
+        plan = _plan("float", ct, mode, rank, tier=tier)
+        got = rt.mttkrp_local(fs, *args, dev["values"], mode=mode, chunk_shape=cs,
+                              nnz_per_task=nnz, plan=plan, out=base.clone())
+        want = base + summed(pref.mttkrp_local_ref(fs, *args, dev["values"], mode=mode,
+                                                   chunk_shape=cs))
+        terms = base.abs() + summed(pref.mttkrp_local_ref(
+            [f.abs() for f in fs], *args, dev["values"].abs(), mode=mode, chunk_shape=cs))
+        return got, want, terms, plan
+    qfactors, qvalues, q = _fixed_inputs(factors, ct, dev, "int15-12")
+    fs = [rt.pad_factor(f, cs[m]) for m, f in enumerate(qfactors)]
+    plan = tiles.plan_launch(ct.num_tasks, ct.capacity, cs, mode, rank, tier=tier,
+                             factor_bytes=fs[0].element_size(),
+                             value_bytes=qvalues.element_size())
+    got = rt.mttkrp_fixed_local(fs, *args, qvalues, mode=mode, chunk_shape=cs, **q,
+                                nnz_per_task=nnz, plan=plan, out=base.clone())
+    want = base + summed(pref.mttkrp_fixed_local_ref(fs, *args, qvalues, mode=mode,
+                                                     chunk_shape=cs, **q))
+    return got, want, None, plan
+
+
+@pytest.mark.parametrize("kind", ["float", "fixed"])
+@pytest.mark.parametrize("tier", ["global", "accumulator", "staged"])
+@pytest.mark.parametrize("case", sorted(DIRECT_CASES))
+def test_direct_output_every_tier_equals_summed_partials(cuda, kind, tier, case):
+    """Every tier, forced through `plan=`, adds each task's sums into the
+    output rows task_chunk[t, mode]·S_mode + [0, S_mode) on top of what the
+    output holds: float within 1e-5 of Σ|terms| per entry (only the order of
+    the sums differs: the block's, the runs', the device atomics'), fixed
+    bit for bit (int32 sums wrap alike in any order)."""
+    shape, nnz, cs, cap, rank, dist = DIRECT_CASES[case]
+    factors, ct, dev = _inputs(shape, nnz, cs, cap, rank, cuda, distribution=dist)
+    if case == "four-mode-hot-row":  # Zipf(1.3), clipped: about a quarter on row 0
+        st = rt.random_tensor(shape, nnz, seed=0, distribution=dist)
+        assert all(int(np.bincount(st.coords[:, m]).max()) >= nnz // 10 for m in range(4))
+    if case == "more-tasks-than-min-blocks":
+        assert ct.num_tasks > tiles.MIN_BLOCKS
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for mode in range(ct.ndim):
+        rows = -(-shape[mode] // cs[mode]) * cs[mode]
+        if kind == "float":
+            base = torch.rand((rows, rank), generator=gen, device=cuda) - 0.5
+        else:
+            base = torch.randint(-2**31, 2**31 - 1, (rows, rank), generator=gen, device=cuda,
+                                 dtype=torch.int32)
+        before = (mttkrp_kernel.launches, mttkrp_fixed_kernel.launches)
+        got, want, terms, plan = _direct_pair(kind, factors, ct, dev, mode, tier, base)
+        torch.cuda.synchronize()
+        assert plan.tier == tier
+        if case == "split-tasks":
+            assert ct.num_tasks == 1 and plan.blocks_per_task > 1
+        assert (mttkrp_kernel.launches - before[0], mttkrp_fixed_kernel.launches - before[1]) \
+            == ((1, 0) if kind == "float" else (0, 1))
+        if kind == "float":
+            err, tol = (got - want).abs(), 1e-5 * terms + 1e-6
+            assert bool((err <= tol).all()), f"mode {mode}: max err {err.max().item()}"
+        else:
+            assert torch.equal(got, want), f"mode {mode}"
+
+
+@pytest.mark.parametrize("kind", ["float", "fixed"])
+def test_direct_output_rejects_what_it_cannot_take(cuda, kind):
+    factors, ct, dev = _inputs((32, 32, 32), 400, (8, 8, 8), 16, 4, cuda)
+    dtype = torch.float32 if kind == "float" else torch.int32
+
+    def launch(out):
+        if kind == "float":
+            return rt.mttkrp_local(factors, dev["task_chunk"], dev["coords_rel"], dev["values"],
+                                   mode=0, chunk_shape=ct.chunk_shape, out=out)
+        qfactors, qvalues, q = _fixed_inputs(factors, ct, dev, "int7")
+        return rt.mttkrp_fixed_local(qfactors, dev["task_chunk"], dev["coords_rel"], qvalues,
+                                     mode=0, chunk_shape=ct.chunk_shape, out=out, **q)
+
+    with pytest.raises(TypeError, match="out must be"):
+        launch(torch.zeros((32, 4), dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError, match="multiple of 8 rows"):
+        launch(torch.zeros((30, 4), dtype=dtype, device=cuda))
+    with pytest.raises(ValueError, match="multiple of 8 rows"):
+        launch(torch.zeros((32, 5), dtype=dtype, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        launch(torch.zeros((4, 32), dtype=dtype, device=cuda).T)
+    with pytest.raises(ValueError, match="is on"):
+        launch(torch.zeros((32, 4), dtype=dtype))
+    out = torch.zeros((32, 4), dtype=dtype, device=cuda)
+    assert launch(out) is out
+
+
+# ---------------------------------------------------------------------------
 # the Gram pseudo-inverse kernel (csrc/gram_pinv.cu)
 # ---------------------------------------------------------------------------
 

@@ -8,7 +8,11 @@ plan, (b) NELL-2 under the default 64 MiB plan, (c) LBNL under the 256 KiB
 plan; f32 factors and values (the float kernel) and int16 factors and
 qvalues (the fixed kernel with int7).
 """
+import math
 import shutil
+import sys
+import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,6 +20,7 @@ import torch
 
 import repro_torch as rt
 from repro_torch.kernels import _build, tiles
+from repro_torch.kernels import ref as kref
 
 A = dict(num_tasks=8192, capacity=18_405, chunk_shape=(756, 574, 901))
 B = dict(num_tasks=32, capacity=4_791_455, chunk_shape=(6046, 4592, 3603))
@@ -172,3 +177,138 @@ def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):
     header.write_text(header.read_text() + "\n// changed\n")
     after = {name: _build._library_path(name) for name in ("mttkrp", "mttkrp_fixed")}
     assert all(before[name] != after[name] for name in before)
+
+
+# ---------------------------------------------------------------------------
+# FROSTT delicious-4d at its published size, and the kernels' direct output
+# ---------------------------------------------------------------------------
+
+D_SHAPE = (532_924, 17_262_471, 2_480_308, 1_443)
+D_NNZ = 140_126_181
+
+
+def _delicious_plan():
+    """decide_partition's plan for Delicious under the benchmark's 256 KiB
+    budget: the decider reads only the shape, nonzero count and density."""
+    st = types.SimpleNamespace(shape=D_SHAPE, nnz=D_NNZ, ndim=len(D_SHAPE),
+                               density=D_NNZ / math.prod(D_SHAPE))
+    return rt.decide_partition(st, 10, mem_bytes=256 * 1024, rank_axis=10)
+
+
+def test_decide_partition_at_delicious_size():
+    plan = _delicious_plan()
+    assert plan.chunk_shape == (33_308, 33_716, 38_755, 1_443)
+    assert plan.capacity == 2_650
+    assert plan.est_chunks == 16 * 512 * 64 * 1
+
+
+@pytest.mark.parametrize("widths", [F32, I16], ids=["f32", "i16"])
+def test_plan_launch_at_delicious_size(widths):
+    """Modes 0-2's (S_mode, R) accumulators (1.3-1.6 MB) fit no block: the
+    global tier, 3 tiles of a 2,650-slot task; mode 3's 1,443 rows do, and no
+    input block fits beside them.  T is a Zipf(1.3) model's 554 K tasks."""
+    plan = _delicious_plan()
+    got = [tiles.plan_launch(554_000, plan.capacity, plan.chunk_shape, mode, 10, **widths)
+           for mode in range(4)]
+    assert [(p.tier, p.blocks_per_task) for p in got] == [("global", 3)] * 3 + [
+        ("accumulator", 1)]
+    # the direct outputs: whole chunks of each mode, 811 MB at R = 10 in float32
+    rows = [-(-d // s) * s for d, s in zip(D_SHAPE, plan.chunk_shape, strict=True)]
+    assert sum(rows) * 10 * 4 == 811_091_320
+
+
+@pytest.mark.parametrize("fixed", [False, True])
+def test_direct_output_on_the_cpu_adds_the_summed_partials(fixed):
+    """Given `out`, the wrappers' plain path adds `reduce_local` of the
+    partials into it, as the kernels add into the (I_pad, R) output."""
+    st = rt.random_tensor((30, 40, 20, 12), 900, seed=5, distribution="powerlaw")
+    ct = rt.chunk_tensor(st, (8, 16, 8, 12), 24)
+    dev = rt.chunked_device_arrays(ct, "cpu")
+    rng = np.random.default_rng(1)
+    factors = [torch.from_numpy(rng.uniform(-1, 1, (d, 4)).astype(np.float32))
+               for d in st.shape]
+    args = (dev["task_chunk"], dev["coords_rel"])
+    for mode in range(4):
+        cs = ct.chunk_shape
+        padded = [rt.pad_factor(f, cs[m]) for m, f in enumerate(factors)]
+        rows = -(-st.shape[mode] // cs[mode]) * cs[mode]
+        if fixed:
+            qf, shift = rt.FIXED_PRESETS["int15-12"]
+            vq = rt.value_qformat(ct.values)
+            q = dict(matrix_frac=qf.frac_bits, value_frac=vq.frac_bits, prec_shift=shift)
+            qvals = torch.from_numpy(vq.quantize_np(ct.values))
+            fs = [qf.quantize(f) for f in padded]
+            base = torch.from_numpy(rng.integers(-1000, 1000, (rows, 4), dtype=np.int32))
+            local = rt.mttkrp_fixed_local(fs, *args, qvals, mode=mode, chunk_shape=cs, **q)
+            got = rt.mttkrp_fixed_local(fs, *args, qvals, mode=mode, chunk_shape=cs, **q,
+                                        out=base.clone())
+        else:
+            base = torch.from_numpy(rng.uniform(-1, 1, (rows, 4)).astype(np.float32))
+            local = rt.mttkrp_local(padded, *args, dev["values"], mode=mode, chunk_shape=cs)
+            got = rt.mttkrp_local(padded, *args, dev["values"], mode=mode, chunk_shape=cs,
+                                  out=base.clone())
+        want = base + kref.reduce_local(local, dev["task_chunk"], mode=mode, chunk_shape=cs,
+                                        out_dim=rows)
+        assert got.shape == (rows, 4) and torch.equal(got, want), mode
+
+
+@pytest.mark.parametrize("fixed", [False, True])
+def test_kernel_ops_count_their_outputs_while_tracing(fixed):
+    """`mttkrp.out_bytes` adds each op call's (I_pad, R) output and
+    `mttkrp.calls` the call, only while tracing is on."""
+    from repro_torch.obs import metrics, tracing
+
+    st = rt.random_tensor((17, 23, 9), 200, seed=1)
+    ct = rt.chunk_tensor(st, (8, 8, 4), 16)
+    dev = rt.chunked_device_arrays(ct, "cpu")
+    factors = [torch.ones((d, 3)) for d in st.shape]
+    args = (dev["task_chunk"], dev["coords_rel"])
+
+    def op(mode):
+        kw = dict(mode=mode, chunk_shape=ct.chunk_shape, out_dim=st.shape[mode])
+        if not fixed:
+            return rt.mttkrp_kernel_op(factors, *args, dev["values"], **kw)
+        qf, shift = rt.FIXED_PRESETS["int7"]
+        vq = rt.value_qformat(ct.values)
+        return rt.mttkrp_fixed_kernel_op(
+            [qf.quantize(f) for f in factors], *args,
+            torch.from_numpy(vq.quantize_np(ct.values)), **kw, matrix_frac=qf.frac_bits,
+            value_frac=vq.frac_bits, prec_shift=shift)
+
+    def counts():
+        snap = metrics.default_registry.snapshot()
+        return tuple(snap[k]["value"] if k in snap else 0
+                     for k in ("mttkrp.out_bytes", "mttkrp.calls"))
+
+    before = counts()
+    op(0)
+    assert counts() == before
+    tracing.enable_tracing()
+    try:
+        outs = [op(mode) for mode in range(3)]
+    finally:
+        tracing.disable_tracing()
+    # rows rounded up to whole chunks: 17 -> 24, 23 -> 24, 9 -> 12; 4 B entries
+    assert [o.shape[0] for o in outs] == list(st.shape)
+    assert counts() == (before[0] + (24 + 24 + 12) * 3 * 4, before[1] + 3)
+
+
+@pytest.mark.parametrize("seed", [1, 2**35 + 9])
+def test_kernel_engine_on_table1_delicious_agrees_with_the_benchmark_reference(seed):
+    """cp_als through the `kernel` engine (its plain path on the CPU, the
+    direct output's `reduce_local`) on PRISM Table I's scaled Delicious,
+    under the benchmark's 256 KiB plan, held to `perfbench/reference.py`'s
+    float64 CP-ALS: float32 rounding through five iterations."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from perfbench import check, reference
+
+    st = rt.table1_tensor("delicious")
+    plan = rt.decide_partition(st, 10, mem_bytes=256 * 1024, rank_axis=10)
+    res = rt.cp_als(st, 10, n_iters=5, engine="kernel", seed=seed, device="cpu",
+                    chunk_shape=plan.chunk_shape, capacity=plan.capacity)
+    ref = reference.cp_als_ref(torch.from_numpy(st.coords), torch.from_numpy(st.values),
+                               st.shape, 10, 5, seed)
+    r = check.readings(res, ref)
+    assert r["factor_gap"] < 1e-4 and r["lam_gap"] < 1e-4 and r["fit_gap"] < 1e-6, r
