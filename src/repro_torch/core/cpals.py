@@ -12,11 +12,13 @@ each mode to its winner; `tune=TunePolicy(...)` sets its knobs), an
 When tracing is on (`repro_torch.obs`) the run emits `cp_als.decompose`
 around the whole call after the engine is built; inside it `cp_als.init`
 (the host draw of the initial factors), `cp_als.upload` (their copy to the
-device and the COO arrays'), `cp_als.norm` (‖X‖², once a call: reduced on
-the device from the uploaded values, `where="device"`, or on the host where
-the call uploads no COO, `where="host"`), per iteration `cp_als.iter` with
-its `cp_als.mode` spans, `cp_als.fit` and `cp_als.diff`, and for a lossy
-engine `cp_als.quant_error`;
+device, and the COO arrays' where the call reads them: its attribute `coo` is
+`"resident"` where the engine's plan cache already holds them on the device,
+`"copied"` where the call copies them, `"none"` where it reads none),
+`cp_als.norm` (‖X‖², once a call: reduced on the device from the COO's
+values, `where="device"`, or on the host where the call reads no COO,
+`where="host"`), per iteration `cp_als.iter` with its `cp_als.mode` spans,
+`cp_als.fit` and `cp_als.diff`, and for a lossy engine `cp_als.quant_error`;
 the counters `cp_als.upload_bytes` and `cp_als.uploads` of
 `obs.metrics.default_registry` count the bytes `cp_als.upload` copies and
 the calls that copied them.
@@ -124,8 +126,25 @@ def _pinv(v: torch.Tensor) -> torch.Tensor:
 
 
 def _coo_tensors(st: SparseTensor, device: torch.device):
-    # repro-lint: disable=host-sync -- the COO arrays are uploaded once per decomposition, for the fit and diff
+    # repro-lint: disable=host-sync -- bare-callable engine, which brings no plan cache: the COO arrays are uploaded once per decomposition, for the fit and diff
     return (torch.from_numpy(st.coords).to(device), torch.from_numpy(st.values).to(device))
+
+
+def _call_coo(eng, st: SparseTensor, device: torch.device, upload_sp):
+    """The COO arrays on `device` for one call, and the bytes the call copied
+    for them.  They come from the engine's plan cache, which keeps them on the
+    device while `st` lives (`coo="resident"` on `upload_sp`, or `"copied"` on
+    the cache's first request); a bare callable brings no plan cache, so the
+    call copies them for itself (`"copied"`)."""
+    plans = getattr(getattr(eng, "context", None), "plans", None)
+    if plans is None:
+        coo, how = _coo_tensors(st, device), "copied"
+    else:
+        misses = plans.stats.coo_misses
+        coo = plans.device_coo(st, device)
+        how = "copied" if plans.stats.coo_misses > misses else "resident"
+    upload_sp.set(coo=how)
+    return coo, sum(t.nbytes for t in coo) if how == "copied" else 0
 
 
 def _count_upload(nbytes: int) -> None:
@@ -348,13 +367,17 @@ def cp_als(
         # Drawn on the host first, so that the draw and the copies time apart.
         with span("cp_als.init"):
             host = init_factors(st.shape, rank, seed, device="cpu")
-        with span("cp_als.upload"):
+        with span("cp_als.upload") as upload_sp:
             factors = _upload_factors(host, device)
-            coo = None if fit_fast and not track_diff else _coo_tensors(st, device)
+            if fit_fast and not track_diff:
+                coo, coo_bytes = None, 0
+                upload_sp.set(coo="none")
+            else:
+                coo, coo_bytes = _call_coo(eng, st, device, upload_sp)
             if tracing_enabled():
-                _count_upload(sum(t.nbytes for t in (*factors, *(coo or ()))))
+                _count_upload(sum(t.nbytes for t in factors) + coo_bytes)
         del host
-        # ‖X‖² once a call, on the device where the values already are.
+        # ‖X‖² once a call, on the device where the values are.
         with span("cp_als.norm", where="host" if coo is None else "device"):
             norm_x2 = st.norm() ** 2 if coo is None else _sum_squares(coo[1])
         lam = torch.ones((rank,), dtype=torch.float32, device=device)

@@ -29,7 +29,8 @@ and `pallas` do.
 
 Chunk-based builders pull their ChunkedTensor and device tensors from the
 context's PlanCache, so several backends built against one tensor chunk it
-once and move it to the card once; the format-based builders (`csf`,
+once and move it to the card once (`ref` takes the PlanCache's resident COO
+arrays, which `cp_als` reads too); the format-based builders (`csf`,
 `alto`) likewise pull their layouts from the context's FormatCache.
 """
 from __future__ import annotations
@@ -54,10 +55,8 @@ def _lockfree_nnz(ctx: EngineContext, dev: dict):
 
 @register_backend("ref", description="plain COO scatter-add reference (paper Fig. 1)")
 def _build_ref(ctx: EngineContext):
-    # repro-lint: disable=host-sync -- engine build: the tensor's arrays are uploaded once and stay resident across iterations
-    coords = torch.from_numpy(ctx.st.coords).to(ctx.device)
-    # repro-lint: disable=host-sync -- engine build: the tensor's arrays are uploaded once and stay resident across iterations
-    values = torch.from_numpy(ctx.st.values).to(ctx.device)
+    # The plan cache's resident COO, the copy `cp_als` reads too.
+    coords, values = ctx.plans.device_coo(ctx.st, ctx.device)
     shape = ctx.st.shape
 
     def engine(factors, mode):

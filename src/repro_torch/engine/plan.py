@@ -5,8 +5,10 @@ Chunking is the expensive, mode-agnostic preprocessing step: one chunking
 serves every MTTKRP mode and every CP-ALS iteration.  The cache lets every
 chunk-based backend share one `PartitionPlan`, one `ChunkedTensor` and, per
 device, one set of resident tensors, so the chunked arrays go to the card
-once.  Entries are keyed by tensor identity and evicted when the tensor is
-garbage collected.
+once.  It also holds, per device, the tensor's plain COO arrays, which the
+`ref` backend and `cp_als` (the fit, the difference, ||X||², the quantization
+error) read, so those go to the card once too.  Entries are keyed by tensor
+identity and evicted when the tensor is garbage collected.
 """
 from __future__ import annotations
 
@@ -31,16 +33,20 @@ class CacheStats:
     chunk_misses: int = 0
     device_hits: int = 0
     device_misses: int = 0
+    coo_hits: int = 0
+    coo_misses: int = 0
 
 
 class PlanCache:
     """Caches `decide_partition` plans, `chunk_tensor` results and the
-    device tensors derived from them, per live tensor (and per device)."""
+    device tensors derived from them, and the COO arrays on each device, per
+    live tensor (and per device)."""
 
     def __init__(self):
         self._plans: dict = {}
         self._chunked: dict = {}
         self._device: dict = {}
+        self._coo: dict = {}
         self._tracked: set[int] = set()
         self.stats = CacheStats()
 
@@ -55,7 +61,7 @@ class PlanCache:
 
     def _evict(self, tkey: int) -> None:
         self._tracked.discard(tkey)
-        for cache in (self._plans, self._chunked, self._device):
+        for cache in (self._plans, self._chunked, self._device, self._coo):
             for k in [k for k in cache if k[0] == tkey]:
                 del cache[k]
 
@@ -94,6 +100,21 @@ class PlanCache:
             self._device[k] = chunked_device_arrays(
                 self.chunked(st, chunk_shape, capacity), device)
         return self._device[k]
+
+    def device_coo(self, st: SparseTensor,
+                   device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+        """The tensor's int32 coordinates (nnz, N) and float32 values (nnz,)
+        as tensors on `device`, moved there once."""
+        k = (self._tensor_key(st), torch.device(device))
+        if k in self._coo:
+            self.stats.coo_hits += 1
+        else:
+            self.stats.coo_misses += 1
+            # repro-lint: disable=host-sync -- uploaded once, resident across CP-ALS calls on the tensor
+            coords = torch.from_numpy(st.coords).to(device)
+            # repro-lint: disable=host-sync -- uploaded once, resident across CP-ALS calls on the tensor
+            self._coo[k] = (coords, torch.from_numpy(st.values).to(device))
+        return self._coo[k]
 
 
 def _evict_weak(cache_ref: weakref.ref[PlanCache], tkey: int) -> None:

@@ -400,12 +400,15 @@ def _upload_bytes() -> tuple[int, int]:
 @pytest.mark.parametrize("track_diff", [True, False])
 def test_upload_bytes_count_what_the_call_copies(track_diff):
     """Float32 factors, int32 coordinates and float32 values; an exact engine
-    without the difference needs no COO copy."""
+    without the difference needs no COO copy.  A fresh plan cache copies the
+    COO on the call's first request (the `ref` engine's build would make that
+    copy itself)."""
     rank, n_iters = 4, 2
     st = rt.random_tensor(SHAPE, NNZ, seed=2)
     nbytes, calls = _upload_bytes()
     with capture():
-        rt.cp_als(st, rank, n_iters, engine="ref", device="cpu", track_diff=track_diff)
+        rt.cp_als(st, rank, n_iters, engine="kernel", device="cpu", track_diff=track_diff,
+                  plans=rt.PlanCache(), **KW)
     coo = NNZ * len(SHAPE) * 4 + NNZ * 4 if track_diff else 0
     assert st.nnz == NNZ
     assert _upload_bytes() == (nbytes + sum(SHAPE) * rank * 4 + coo, calls + 1)

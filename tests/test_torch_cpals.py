@@ -5,6 +5,9 @@
 which carries about ||X||²·eps ≈ 1e-3 of absolute error on these tensors,
 about 3e-8 of fit; the factors themselves agree to float32 summation order.
 """
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +17,8 @@ from repro.core import chunk_tensor, cp_als, decide_partition, table1_tensor
 from repro.core.cpals import init_factors
 from repro_torch.engine import default_plan_cache
 from repro_torch.kernels import mttkrp_kernel
+from repro_torch.obs import capture
+from repro_torch.obs.metrics import default_registry
 
 FIT_ATOL = 1e-6
 TENSORS = ["nell2", "lbnl"]
@@ -216,3 +221,86 @@ def test_norm_once_per_call(monkeypatch, engine, track_diff):
     assert abs(float(device_norm) - norm_x2) <= 1e-12 * norm_x2
     assert abs(rt.fit_value(st, factors, lam, norm_x2=device_norm)
                - rt.fit_value(st, factors, lam)) <= 1e-9
+
+
+def _traced_call(st, engine, seed, **kw):
+    """One traced cp_als call: (result, its `cp_als.upload` span's `coo`
+    attribute, the bytes it added to `cp_als.upload_bytes`)."""
+    counter = default_registry.counter("cp_als.upload_bytes")
+    before = counter.value
+    with capture() as spans:
+        res = rt.cp_als(st, 4, 2, engine=engine, seed=seed, **kw)
+    (upload,) = [s for s in spans if s.name == "cp_als.upload"]
+    return res, upload.attrs["coo"], counter.value - before
+
+
+def _factor_bytes(st, rank=4):
+    return sum(st.shape) * rank * 4
+
+
+def _coo_bytes(st):
+    return st.nnz * (4 * st.ndim + 4)
+
+
+COO_KW = dict(chunk_shape=(8, 8, 8), capacity=64)
+
+
+def test_coo_resident_across_calls_on_one_engine():
+    """The COO goes to the device on the first call and stays there: the
+    second call copies only the factors, and both calls give the same bits as
+    calls that each copy the COO into an engine of their own."""
+    st = rt.random_tensor((30, 24, 36), 700, seed=3)
+    cache = rt.PlanCache()
+    eng = rt.build_engine(st, "kernel", 4, device="cpu", plans=cache, **COO_KW)
+    got = [_traced_call(st, eng, seed) for seed in (0, 1)]
+    assert [how for _, how, _ in got] == ["copied", "resident"]
+    assert [n for _, _, n in got] == [_factor_bytes(st) + _coo_bytes(st), _factor_bytes(st)]
+    assert (cache.stats.coo_misses, cache.stats.coo_hits) == (1, 1)
+    for seed, (res, _, _) in zip((0, 1), got, strict=True):
+        fresh = rt.build_engine(st, "kernel", 4, device="cpu", plans=rt.PlanCache(), **COO_KW)
+        want, how, _ = _traced_call(st, fresh, seed)
+        assert how == "copied"
+        assert res.fit_history == want.fit_history
+        assert res.diff_history == want.diff_history
+        assert torch.equal(res.lam, want.lam)
+        for g, w in zip(res.factors, want.factors, strict=True):
+            assert torch.equal(g, w)
+
+
+def test_coo_entry_evicted_with_the_tensor():
+    st = rt.random_tensor((30, 24, 36), 700, seed=3)
+    cache = rt.PlanCache()
+    coords, values = cache.device_coo(st, "cpu")
+    assert coords.dtype == torch.int32 and values.dtype == torch.float32
+    assert cache.device_coo(st, "cpu")[1] is values
+    gone = weakref.ref(values)
+    del st, coords, values
+    gc.collect()
+    assert gone() is None and not cache._coo
+    assert (cache.stats.coo_misses, cache.stats.coo_hits) == (1, 1)
+
+
+def test_ref_engine_and_cp_als_share_one_coo_entry():
+    st = rt.random_tensor((30, 24, 36), 700, seed=3)
+    cache = rt.PlanCache()
+    eng = rt.build_engine(st, "ref", 4, device="cpu", plans=cache)
+    assert (cache.stats.coo_misses, cache.stats.coo_hits) == (1, 0)
+    res, how, nbytes = _traced_call(st, eng, 0)
+    assert (how, nbytes) == ("resident", _factor_bytes(st))
+    assert (cache.stats.coo_misses, cache.stats.coo_hits) == (1, 1)
+    want = rt.cp_als(st, 4, 2, engine="ref", seed=0, device="cpu", plans=rt.PlanCache())
+    assert res.fit_history == want.fit_history and res.diff_history == want.diff_history
+
+
+def test_bare_callable_copies_the_coo_every_call():
+    st = rt.random_tensor((30, 24, 36), 700, seed=3)
+    cache = rt.PlanCache()
+    eng = rt.build_engine(st, "kernel", 4, device="cpu", plans=cache, **COO_KW)
+
+    def bare(factors, mode):
+        return eng(factors, mode)
+
+    got = [_traced_call(st, bare, seed, device="cpu") for seed in (0, 1)]
+    assert [(how, n) for _, how, n in got] == [
+        ("copied", _factor_bytes(st) + _coo_bytes(st))] * 2
+    assert (cache.stats.coo_misses, cache.stats.coo_hits) == (0, 0)

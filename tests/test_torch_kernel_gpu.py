@@ -22,6 +22,7 @@ NaN or an off-diagonal ±Inf must come out all NaN, one with ±Inf only on
 the diagonal all zeros, as the plain version (and `jnp.linalg.pinv`) answer.
 """
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -39,6 +40,8 @@ from repro_torch.kernels import (
     tiles,
 )
 from repro_torch.kernels import ref as pref
+from repro_torch.obs import capture
+from repro_torch.obs.metrics import default_registry
 
 pytestmark = pytest.mark.gpu
 
@@ -716,8 +719,12 @@ def test_gram_pinv_failures_raise(cuda, monkeypatch):
         raise KernelError(f"nvcc failed on csrc/{name}.cu")
 
     monkeypatch.setattr(_build, "load", broken)
+    st = rt.table1_tensor("nell2")
+    # ||X||² is reduced on the card before the first mode update where the call reads the COO
+    with pytest.raises(KernelError, match="sum_squares"):
+        rt.cp_als(st, 10, n_iters=1, engine="ref")
     with pytest.raises(KernelError, match="gram_pinv"):
-        rt.cp_als(rt.table1_tensor("nell2"), 10, n_iters=1, engine="ref")
+        rt.cp_als(st, 10, n_iters=1, engine="ref", track_diff=False)
 
 
 def test_cp_als_kernel_engine_through_gram_pinv(cuda, monkeypatch):
@@ -794,6 +801,51 @@ def test_cp_als_reduces_the_norm_once_on_the_card(cuda):
     norm_x2 = sum_squares.sum_squares(torch.from_numpy(st.values).to(cuda))
     assert abs(port_cpals.fit_value(st, res.factors, res.lam, norm_x2=norm_x2)
                - port_cpals.fit_value(st, res.factors, res.lam)) <= 1e-9
+
+
+@pytest.mark.parametrize("engine", ["kernel", "fixed:int15-12"])
+def test_cp_als_keeps_the_coo_on_the_card(cuda, engine):
+    """Two calls on one engine copy the COO (3.2 MB here) once: the second
+    copies only the factors.  Against two calls that each copy the COO into
+    an engine of their own, built after the previous one is dropped, the
+    histories agree within 1e-5 (the float kernel's atomics reorder its sums)
+    and the peak device memory over the two calls within 1 MiB."""
+    st = rt.random_tensor((300, 200, 400), 200_000, seed=6)
+    rank, kw = 8, dict(chunk_shape=(32, 32, 32), capacity=256)
+    counter = default_registry.counter("cp_als.upload_bytes")
+
+    def build():
+        return rt.build_engine(st, engine, rank, device=cuda, plans=rt.PlanCache(), **kw)
+
+    def two_calls(resident: bool):
+        gc.collect()
+        torch.cuda.synchronize(cuda)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        eng, out = build(), []
+        for seed in (0, 1):
+            if not resident and seed:
+                del eng
+                gc.collect()
+                eng = build()
+            before = counter.value
+            with capture() as spans:
+                res = rt.cp_als(st, rank, 3, engine=eng, seed=seed)
+            (upload,) = [s for s in spans if s.name == "cp_als.upload"]
+            out.append((res, upload.attrs["coo"], counter.value - before))
+        torch.cuda.synchronize(cuda)
+        return out, torch.cuda.max_memory_allocated(cuda)
+
+    factor_bytes, coo_bytes = sum(st.shape) * rank * 4, st.nnz * 16
+    per_call, per_call_peak = two_calls(resident=False)
+    got, peak = two_calls(resident=True)
+    assert [(how, n) for _, how, n in per_call] == [("copied", factor_bytes + coo_bytes)] * 2
+    assert [(how, n) for _, how, n in got] == [("copied", factor_bytes + coo_bytes),
+                                               ("resident", factor_bytes)]
+    for (res, _, _), (want, _, _) in zip(got, per_call, strict=True):
+        np.testing.assert_allclose(res.fit_history, want.fit_history, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(res.diff_history, want.diff_history, rtol=0, atol=1e-5)
+    assert abs(peak - per_call_peak) <= 1 << 20, (peak, per_call_peak)
 
 
 @pytest.fixture
