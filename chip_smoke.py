@@ -13,10 +13,11 @@ Phases, each fatal on failure:
      (registers, spills); every width of the Gram pseudo-inverse's warp
      tier must be listed with no stack frame and no spill;
   3. hold the float kernel against its plain PyTorch version on the card,
-     every mode, local partials and the full op (the direct output: every
-     task's sums added into one zero-filled (I_pad, R) buffer, with
-     `nnz_per_task`, as the engines call it), printing each launch's tier, blocks per task
-     and shared-memory bytes, for
+     every mode: the wrapper adding into an (I_pad, R) output that already
+     holds numbers (against them plus the summed plain per-task partials)
+     and the full op (every task's sums added into one zero-filled output,
+     with `nnz_per_task`, as the engines call it), printing each launch's
+     tier, blocks per task and shared-memory bytes, for
        (a) NELL-2's published dims and nnz, uniform, seed 0, R = 10, under the
            256 KiB plan of examples/decompose_tensor.py,
        (b) the same tensor under the engine's default 64 MiB plan,
@@ -577,9 +578,26 @@ def steady(iter_times) -> float:
     return 1e3 * float(np.mean(iter_times[1:]))
 
 
+def out_base(st, ct, mode: int, dtype, device) -> torch.Tensor:
+    """An (I_pad, R) output that already holds numbers, drawn from seed 7:
+    float in [-0.5, 0.5), int32 over its whole range."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    shape = (out_rows(st, ct, mode), RANK)
+    if dtype == torch.float32:
+        return torch.rand(shape, generator=gen, device=device) - 0.5
+    return torch.randint(-2**31, 2**31 - 1, shape, generator=gen, device=device, dtype=dtype)
+
+
+def summed(local, dev, ct, mode: int, base) -> torch.Tensor:
+    """`base` plus the per-task partials summed into their output rows."""
+    return base + kref.reduce_local(local, dev["task_chunk"], mode=mode,
+                                    chunk_shape=ct.chunk_shape, out_dim=base.shape[0])
+
+
 def check_case(label, st, ct, dev, device) -> float:
-    """Phase 3 for one case: float kernel vs plain, local partials and full
-    op, every mode.  Returns the largest absolute difference seen."""
+    """Phase 3 for one case: float kernel vs plain, the wrapper adding into
+    an output that holds numbers and the full op, every mode.  Returns the
+    largest absolute difference seen."""
     cs = ct.chunk_shape
     log(f"[3] case {label}: dims={st.shape} nnz={st.nnz} chunk={cs} "
         f"T={ct.num_tasks} P={ct.capacity} fill={st.nnz / (ct.num_tasks * ct.capacity):.3f}")
@@ -592,9 +610,14 @@ def check_case(label, st, ct, dev, device) -> float:
     worst = 0.0
     for mode in range(st.ndim):
         log(f"[3]   mode {mode}: {plan_of(st, ct, mode)}")
-        got = rt.mttkrp_local(padded, tc, cr, vals, mode=mode, chunk_shape=cs, nnz_per_task=nnz)
-        want = kref.mttkrp_local_ref(padded, tc, cr, vals, mode=mode, chunk_shape=cs)
-        terms = kref.mttkrp_local_ref(abs_padded, tc, cr, abs_vals, mode=mode, chunk_shape=cs)
+        base = out_base(st, ct, mode, torch.float32, device)
+        got = rt.mttkrp_local(padded, tc, cr, vals, mode=mode, chunk_shape=cs, nnz_per_task=nnz,
+                              out=base.clone())
+        want = summed(kref.mttkrp_local_ref(padded, tc, cr, vals, mode=mode, chunk_shape=cs),
+                      dev, ct, mode, base)
+        terms = summed(kref.mttkrp_local_ref(abs_padded, tc, cr, abs_vals, mode=mode,
+                                             chunk_shape=cs), dev, ct, mode, base.abs())
+        del base
         torch.cuda.synchronize()
         local_err, local_bad = sum_order_error(got, want, terms)
         del got, want, terms
@@ -631,9 +654,10 @@ def fixed_inputs(st, ct, device, preset):
 
 
 def check_fixed_case(label, st, ct, dev, device, presets) -> int:
-    """Phase 3f for one case: fixed kernel vs plain, bit for bit, local
-    partials and full op, every mode and preset.  Returns the largest
-    absolute difference seen (0 when they agree)."""
+    """Phase 3f for one case: fixed kernel vs plain, bit for bit, the
+    wrapper adding into an output that holds numbers and the full op, every
+    mode and preset.  Returns the largest absolute difference seen (0 when
+    they agree)."""
     cs = ct.chunk_shape
     row_nnz = [int(np.bincount(st.coords[:, m], minlength=st.shape[m]).max())
                for m in range(st.ndim)]
@@ -649,10 +673,12 @@ def check_fixed_case(label, st, ct, dev, device, presets) -> int:
         for mode in range(st.ndim):
             log(f"[3f]   mode {mode}: "
                 f"{plan_of(st, ct, mode, qfactors[0].element_size(), qvalues.element_size())}")
+            base = out_base(st, ct, mode, torch.int32, device)
             got = rt.mttkrp_fixed_local(padded, tc, cr, qvalues, mode=mode, chunk_shape=cs,
-                                        nnz_per_task=nnz, **q)
-            want = kref.mttkrp_fixed_local_ref(padded, tc, cr, qvalues, mode=mode,
-                                               chunk_shape=cs, **q)
+                                        nnz_per_task=nnz, out=base.clone(), **q)
+            want = summed(kref.mttkrp_fixed_local_ref(padded, tc, cr, qvalues, mode=mode,
+                                                      chunk_shape=cs, **q), dev, ct, mode, base)
+            del base
             local_ok, local_err = bool(torch.equal(got, want)), int_error(got, want)
             del got, want
             out_dim = st.shape[mode]

@@ -23,8 +23,8 @@ that layer:
     variants use (the creation ops, `arange`, `where`, `gather`, `F.pad`,
     `matmul`, `index_select`, `index_add_` — each call recorded —,
     `reshape`/`view`/`expand`, casts, slicing, shifts and elementwise
-    arithmetic), and of the kernel wrappers' CUDA branch: `tiles.new_output`
-    returns its shape and dtype, a ctypes entry an opaque int.
+    arithmetic), and of the kernel wrappers' CUDA branch: a ctypes entry
+    returns an opaque int, and the wrapper returns the `out` it was given.
 
 `shape_rules.py` drives this against the contracts pinned in
 `kernel_contracts.json`.  The interpreter is quiet on ignorance: anything it
@@ -1641,17 +1641,6 @@ def _p_pinv(self, func, args, kwargs, node):
     return AArray((*v.shape[:-2], v.shape[-1], v.shape[-2]), v.dtype)
 
 
-def _p_new_output(self, func, args, kwargs, node):
-    """`kernels/tiles.py::new_output(plan, shape, dtype, device)`: the kernel
-    wrappers' CUDA-branch output."""
-    if len(args) < 3:
-        return UNKNOWN
-    shape = _shape_from([args[1]])
-    if shape is None or not isinstance(args[2], ADType):
-        return UNKNOWN
-    return AArray(shape, args[2].dtype, origin=_origin(self, node))
-
-
 def _p_load(self, func, args, kwargs, node):
     """`kernels/_build.py::load`: a ctypes library, whose entries return an
     opaque int."""
@@ -1738,7 +1727,6 @@ _PRIMITIVES = {
     "torch.matmul": _p_matmul,
     "torch.linalg.pinv": _p_pinv,
     "F.pad": _p_pad,
-    "src/repro_torch/kernels/tiles.py::new_output": _p_new_output,
     "src/repro_torch/kernels/_build.py::load": _p_load,
     "builtin.len": _p_len, "builtin.range": _p_range,
     "builtin.enumerate": _p_enumerate, "builtin.zip": _p_zip,

@@ -25,11 +25,11 @@ grid of (ndim, mode) so mode-rotation bugs (the `chunk_shape[m]` vs
       return statement that produced it, a wrong target at the line that
       allocated it.
 
-A kernel wrapper's CPU branch returns the plain version and its CUDA branch
-`tiles.new_output(...)`; the interpreter follows both and checks each
-return.  The reference's `pallas-blockspec` has no counterpart (the port
-has no BlockSpecs; `kernels/tiles.py::plan_launch` checks each launch plan
-at run time).
+A kernel wrapper's CPU branch returns `out` with the plain version's summed
+partials added and its CUDA branch the `out` the kernel added into; the
+interpreter follows both and checks each return.  The reference's
+`pallas-blockspec` has no counterpart (the port has no BlockSpecs;
+`kernels/tiles.py::plan_launch` checks each launch plan at run time).
 """
 from __future__ import annotations
 

@@ -492,12 +492,10 @@ def _binding_findings(ctx: ProjectContext):
     if fn is None:
         return
     for node in ast.walk(fn):
-        # The C entry is the call that hands the kernel device addresses.
-        if not (isinstance(node, ast.Call) and any(
-                isinstance(a, ast.Call) and isinstance(a.func, ast.Attribute)
-                and a.func.attr == "data_ptr" for a in node.args)):
-            continue
-        args = node.args
+        # The C entry's trailing ints: the call arguments or tuple that hold
+        # `matrix_frac` by position.
+        args = node.args if isinstance(node, ast.Call) else \
+            node.elts if isinstance(node, ast.Tuple) else []
         at = next((i for i, a in enumerate(args)
                    if isinstance(a, ast.Name) and a.id == "matrix_frac"), None)
         if at is None:

@@ -4,8 +4,8 @@
 `csrc/mttkrp_tiles.cuh`, the Gram pseudo-inverse `csrc/gram_pinv.cu` and
 the fit's sum of squares `csrc/sum_squares.cu`) and `_build` compiles them
 at first use (raising `KernelError` when a kernel cannot be built, loaded
-or launched); `tiles` plans each launch (tier, blocks per task, shared
-memory); `mttkrp_kernel` wraps the float kernel, `mttkrp_fixed_kernel` the
+or launched); `tiles` plans each spMTTKRP launch (tier, blocks per task,
+shared memory) and makes it; `mttkrp_kernel` wraps the float kernel, `mttkrp_fixed_kernel` the
 fixed-point one (paper Alg. 2), `gram_pinv` CP-ALS's sync-free
 pseudo-inverse, `sum_squares` the fit's ||X||², `ops` the padded full ops,
 `ref` the plain PyTorch versions.

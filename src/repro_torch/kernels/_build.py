@@ -3,9 +3,9 @@
 Each source in `csrc/` is compiled by nvcc, at first use, into a shared
 library with a plain C interface under `build/kernels/` at the repository
 root, named by a hash of the source, the shared headers (`csrc/*.cuh`) and
-the flags, and loaded with ctypes.
-Nothing is built when a module is imported.  A failed build or load
-raises `KernelError`.
+the flags, and loaded with ctypes; `call` launches through one of its C
+entries.  Nothing is built when a module is imported.  A failed build, load
+or launch raises `KernelError`.
 """
 from __future__ import annotations
 
@@ -16,7 +16,9 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "KernelError", "build", "build_log", "load"]
+import torch
+
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "KernelError", "build", "build_log", "call", "load"]
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -24,7 +26,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-
+#: What a C entry returns when the host's plan disagrees with its kernel's layout.
+_LAYOUT_MISMATCH = -1
 
 
 class KernelError(RuntimeError):
@@ -94,3 +97,32 @@ def load(name: str) -> ctypes.CDLL:
             except OSError as e:
                 raise KernelError(f"cannot load {path}: {e}") from e
         return _libs[name]
+
+
+def _symbol(source: str, symbol: str, argtypes) -> tuple:
+    """The library of csrc/`source`.cu and its C entry `symbol`, taking
+    `argtypes` and then the stream, returning an int."""
+    lib = load(source)
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        lib.prism_cuda_error_string.restype = ctypes.c_char_p
+        lib.prism_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib, fn
+
+
+def call(source: str, symbol: str, argtypes, *args, device, context) -> None:
+    """Calls the C entry `symbol` of csrc/`source`.cu with `args` and the
+    current stream of `device`.  Its non-zero return code raises
+    KernelError naming the `source` kernel and `context` (the launch's plan,
+    or its sizes)."""
+    lib, fn = _symbol(source, symbol, argtypes)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc == _LAYOUT_MISMATCH:
+        raise KernelError(f"{source} kernel refused the launch: the plan disagrees with the "
+                          f"kernel's layout ({context})")
+    if rc != 0:
+        raise KernelError(f"{source} kernel launch failed: "
+                          f"{lib.prism_cuda_error_string(rc).decode()} ({rc}; {context})")

@@ -8,7 +8,7 @@
 // of the task's private (S_mode, R) block.  The TPU kernel returns those
 // blocks, local (T, S_mode, R) f32, and sums them outside; this one adds each
 // block straight into the (I_pad, R) output at rows task_chunk[t, mode] *
-// S_mode + [0, S_mode) (`direct`; the blocks themselves with direct = 0).
+// S_mode + [0, S_mode).
 //
 // Design (csrc/mttkrp_tiles.cuh).  The TPU kernel runs one grid step per
 // task, fetches each input mode's (S_m, R) block once through its
@@ -70,17 +70,16 @@ struct FloatPolicy {
 extern "C" {
 
 // Launches tier `tier` (0 global, 1 accumulator, 2 staged) on `stream`;
-// `chunk` is the host's (N,) int64 chunk shape; `direct` 1 adds into the
-// zero-filled (I_pad, R) output, 0 gives the (T, S_mode, R) blocks.
-// Returns a cudaError_t (0 = launched) or -1 when `smem_bytes` disagrees
+// `chunk` is the host's (N,) int64 chunk shape; the sums are added into
+// the zero-filled (I_pad, R) output.  Returns a cudaError_t (0 = launched) or -1 when `smem_bytes` disagrees
 // with the kernel's layout.  Allocates nothing and does not synchronise.
 int prism_mttkrp_local_f32(const void* task_chunk, const void* coords_rel, const void* values,
                            const void* meta, const void* nnz_per_task, void* out, long long T,
                            long long P, int N, int R, int mode, const long long* chunk, int tier,
-                           long long bpt, unsigned staged_mask, long long smem_bytes, int direct,
+                           long long bpt, unsigned staged_mask, long long smem_bytes,
                            void* stream) {
     return prism::launch(task_chunk, coords_rel, values, meta, nnz_per_task, out, T, P, N, R,
-                         mode, chunk, tier, bpt, staged_mask, smem_bytes, direct, FloatPolicy{},
+                         mode, chunk, tier, bpt, staged_mask, smem_bytes, FloatPolicy{},
                          static_cast<cudaStream_t>(stream));
 }
 

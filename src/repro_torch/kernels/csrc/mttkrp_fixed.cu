@@ -12,8 +12,7 @@
 // coords_rel[t, p, mode] of the task's (S_mode, R) int32 block (rows outside
 // [0, S_mode) are dropped).  The TPU kernel returns those blocks, local
 // (T, S_mode, R) int32; this one adds each straight into the (I_pad, R)
-// int32 output at rows task_chunk[t, mode] * S_mode + [0, S_mode) (`direct`;
-// the blocks themselves with direct = 0).
+// int32 output at rows task_chunk[t, mode] * S_mode + [0, S_mode).
 //
 // Arithmetic.  XLA's int32 multiply wraps, and signed overflow is undefined
 // in C++, so every product is formed in uint32_t and cast back to int32_t
@@ -93,7 +92,6 @@ struct Args {
     long long bpt;
     unsigned staged_mask;
     long long smem_bytes;
-    int direct;
     cudaStream_t stream;
 };
 
@@ -101,7 +99,7 @@ template <typename F, typename V>
 int launch_typed(const Args& a, int matrix_frac, int out_shift) {
     return prism::launch(a.task_chunk, a.coords_rel, a.qvalues, a.meta, a.nnz_per_task, a.out,
                          a.T, a.P, a.N, a.R, a.mode, a.chunk, a.tier, a.bpt, a.staged_mask,
-                         a.smem_bytes, a.direct, FixedPolicy<F, V>{matrix_frac, out_shift},
+                         a.smem_bytes, FixedPolicy<F, V>{matrix_frac, out_shift},
                          a.stream);
 }
 
@@ -123,7 +121,7 @@ extern "C" {
 
 // Launches tier `tier` (0 global, 1 accumulator, 2 staged) on `stream` for
 // factors stored in `factor_bytes` (1, 2 or 4) and qvalues in `value_bytes`
-// (2 or 4); `chunk` is the host's (N,) int64 chunk shape, `direct` as in
+// (2 or 4); `chunk` is the host's (N,) int64 chunk shape, the output as in
 // csrc/mttkrp.cu and out_shift = value_frac + prec_shift.  Returns a
 // cudaError_t (0 = launched) or -1 when `smem_bytes` disagrees with the
 // kernel's layout.  Allocates nothing and does not synchronise.
@@ -131,11 +129,10 @@ int prism_mttkrp_fixed_local(const void* task_chunk, const void* coords_rel, con
                              const void* meta, const void* nnz_per_task, void* out, long long T,
                              long long P, int N, int R, int mode, const long long* chunk,
                              int tier, long long bpt, unsigned staged_mask, long long smem_bytes,
-                             int direct, int matrix_frac, int out_shift, int factor_bytes,
-                             int value_bytes, void* stream) {
+                             int matrix_frac, int out_shift, int factor_bytes, int value_bytes,
+                             void* stream) {
     const Args a{task_chunk, coords_rel, qvalues, meta, nnz_per_task, out, T, P, N, R, mode,
-                 chunk, tier, bpt, staged_mask, smem_bytes, direct,
-                 static_cast<cudaStream_t>(stream)};
+                 chunk, tier, bpt, staged_mask, smem_bytes, static_cast<cudaStream_t>(stream)};
     switch (factor_bytes) {
         case 1:
             return launch_values<int8_t>(value_bytes, a, matrix_frac, out_shift);

@@ -11,12 +11,11 @@
 // the task's (S_mode, R) block, and dropped when that row is outside
 // [0, S_mode).  Slots whose value is 0 add nothing and are skipped.  A slot
 // at or past nnz_per_task[t] (when given) is not read: the caller
-// guarantees it holds 0.  Output, by `direct`: 1, the (I_pad, R) MTTKRP
-// itself, block t added into rows task_chunk[t, mode] * S_mode + [0, S_mode)
-// of a zero-filled output (what kernels/ops.py launches); 0, the per-task
-// partials local (T, S_mode, R), block t at rows t * S_mode + [0, S_mode)
-// (the plain version's contract, kernels/ref.py::mttkrp_local_ref, whose
-// global sum is kernels/ref.py::reduce_local).
+// guarantees it holds 0.  Output: the (I_pad, R) MTTKRP itself, block t
+// added into rows task_chunk[t, mode] * S_mode + [0, S_mode) of the
+// zero-filled output that kernels/ops.py allocates.  The TPU kernel's
+// per-task (T, S_mode, R) partials are the plain version's
+// (kernels/ref.py::mttkrp_local_ref; their sum is kernels/ref.py::reduce_local).
 //
 // Three tiers, chosen on the host from the shapes by
 // kernels/tiles.py::plan_launch, which mirrors `task_smem_bytes` below:
@@ -47,12 +46,10 @@
 // Threads walk the (slot, r) pairs of a tile flattened, so at R = 10 no
 // lane idles.  At the end a block adds the non-zero entries of its
 // accumulator into the zero-filled output with device-memory atomics,
-// coalesced, at its task's rows; only the partials output of a task that one
-// block owns is written whole with stores instead (zero rows included: that
-// output may be uninitialised).  Device atomics keep the fixed-point kernel
-// bit-exact (int32 addition is associative modulo 2^32).  The direct output
-// takes the place of the (T, S_mode, R) partials and their sum, which at
-// FROSTT Delicious's size would be 738-858 GB a mode.
+// coalesced, at its task's rows.  Device atomics keep the fixed-point kernel
+// bit-exact (int32 addition is associative modulo 2^32).  The output takes
+// the place of the (T, S_mode, R) partials and their sum, which at FROSTT
+// Delicious's size would be 738-858 GB a mode.
 
 #pragma once
 
@@ -150,9 +147,9 @@ task_kernel(const int32_t* __restrict__ task_chunk,              // (T, N)
             const typename Pol::Value* __restrict__ values,      // (T, P)
             const long long* __restrict__ meta,                  // (3, N)
             const int32_t* __restrict__ nnz_per_task,            // (T,) or null
-            typename Pol::Acc* __restrict__ out,                 // (I_pad or T*S_mode, R)
+            typename Pol::Acc* __restrict__ out,                 // (I_pad, R)
             long long P, int n_modes, int R, int mode, int bpt, unsigned staged_mask,
-            int direct, Pol pol) {
+            Pol pol) {
     using F = typename Pol::Factor;
     using V = typename Pol::Value;
     using A = typename Pol::Acc;
@@ -166,8 +163,7 @@ task_kernel(const int32_t* __restrict__ task_chunk,              // (T, N)
     const long long span = (live + bpt - 1) / bpt;
     const long long s_begin = part * span;
     const long long s_end = min_ll(live, s_begin + span);
-    const bool adds = direct || bpt > 1;  // into a zero-filled output
-    if (adds && s_begin >= s_end) return;  // adds nothing
+    if (s_begin >= s_end) return;  // adds nothing
 
     ModeInfo* tab = reinterpret_cast<ModeInfo*>(smem);
     const long long stage_c = ring_coord_bytes(N);
@@ -207,20 +203,18 @@ task_kernel(const int32_t* __restrict__ task_chunk,              // (T, N)
     }
     for (int i = threadIdx.x; i < n_acc; i += kThreads) acc[i] = A(0);
     __syncthreads();
-    if (s_begin < s_end) {
-        for (int m = 0; m < N; ++m) {
-            const ModeInfo d = tab[m];
-            if (d.staged < 0) continue;
-            F* dst = reinterpret_cast<F*>(smem + d.staged);
-            const F* src = static_cast<const F*>(d.factor);
-            const long long first = d.base * R, end = (d.last + 1) * R;
-            const int n = d.size * R;
+    for (int m = 0; m < N; ++m) {
+        const ModeInfo d = tab[m];
+        if (d.staged < 0) continue;
+        F* dst = reinterpret_cast<F*>(smem + d.staged);
+        const F* src = static_cast<const F*>(d.factor);
+        const long long first = d.base * R, end = (d.last + 1) * R;
+        const int n = d.size * R;
 #pragma unroll 4
-            for (int i = threadIdx.x; i < n; i += kThreads) {
-                long long e = first + i;
-                if (e >= end) e = end - R + i % R;  // rows past the last clamp to it
-                dst[i] = __ldg(src + e);
-            }
+        for (int i = threadIdx.x; i < n; i += kThreads) {
+            long long e = first + i;
+            if (e >= end) e = end - R + i % R;  // rows past the last clamp to it
+            dst[i] = __ldg(src + e);
         }
     }
 
@@ -332,13 +326,9 @@ task_kernel(const int32_t* __restrict__ task_chunk,              // (T, N)
 
     __syncthreads();
     // tab[mode].base is the task's first output row, task_chunk[t, mode] * S_mode
-    A* dst = out + (direct ? tab[mode].base : t * s_out) * R;
-    if (!adds) {
-        for (int i = threadIdx.x; i < n_acc; i += kThreads) dst[i] = acc[i];
-    } else {
-        for (int i = threadIdx.x; i < n_acc; i += kThreads)
-            if (acc[i] != A(0)) atomicAdd(dst + i, acc[i]);
-    }
+    A* dst = out + tab[mode].base * R;
+    for (int i = threadIdx.x; i < n_acc; i += kThreads)
+        if (acc[i] != A(0)) atomicAdd(dst + i, acc[i]);
 }
 
 // Global tier.  The grid is (task, tile of kGlobalTile slots) flattened;
@@ -358,7 +348,7 @@ global_kernel(const int32_t* __restrict__ task_chunk, const int32_t* __restrict_
               const typename Pol::Value* __restrict__ values, const long long* __restrict__ meta,
               const int32_t* __restrict__ nnz_per_task, typename Pol::Acc* __restrict__ out,
               long long P, int N, int R, int mode, long long tiles_per_task, int group,
-              int direct, Pol pol) {
+              Pol pol) {
     using F = typename Pol::Factor;
     using A = typename Pol::Acc;
     extern __shared__ long long smeta[];
@@ -377,7 +367,7 @@ global_kernel(const int32_t* __restrict__ task_chunk, const int32_t* __restrict_
     const long long g_end = min_ll(p_end, g_begin + span);
     const long long s_out = smeta[2 * N + mode];
     const int32_t* tc = task_chunk + t * N;
-    A* dst = out + (direct ? static_cast<long long>(tc[mode]) * s_out : t * s_out) * R;
+    A* dst = out + static_cast<long long>(tc[mode]) * s_out * R;
 
     for (int r = lane; r < R; r += group) {
         A run = A(0);
@@ -414,14 +404,14 @@ global_kernel(const int32_t* __restrict__ task_chunk, const int32_t* __restrict_
 
 // Launches one tier on `stream`.  `chunk` (host, N int64) is the chunk
 // shape; `smem_bytes` is the host plan's dynamic shared memory, held here
-// against the kernel's own layout (kLayoutMismatch when they differ);
-// `direct` picks the output (see the contract above).  Returns a
-// cudaError_t (0 = launched); allocates nothing, does not synchronise.
+// against the kernel's own layout (kLayoutMismatch when they differ).
+// Returns a cudaError_t (0 = launched); allocates nothing, does not
+// synchronise.
 template <class Pol>
 int launch(const void* task_chunk, const void* coords_rel, const void* values, const void* meta,
            const void* nnz_per_task, void* out, long long T, long long P, int N, int R,
            int mode, const long long* chunk, int tier, long long bpt, unsigned staged_mask,
-           long long smem_bytes, int direct, Pol pol, cudaStream_t stream) {
+           long long smem_bytes, Pol pol, cudaStream_t stream) {
     using V = typename Pol::Value;
     using A = typename Pol::Acc;
     const auto* tc = static_cast<const int32_t*>(task_chunk);
@@ -440,7 +430,7 @@ int launch(const void* task_chunk, const void* coords_rel, const void* values, c
         if (smem_bytes != 3LL * N * static_cast<long long>(sizeof(long long)))
             return kLayoutMismatch;
         global_kernel<Pol><<<static_cast<unsigned>(blocks), kGlobalThreads, smem_bytes, stream>>>(
-            tc, cr, vals, mt, nnz, dst, P, N, R, mode, tiles, group, direct, pol);
+            tc, cr, vals, mt, nnz, dst, P, N, R, mode, tiles, group, pol);
         return static_cast<int>(cudaGetLastError());
     }
     if (tier != kAccumulator && tier != kStaged) return static_cast<int>(cudaErrorInvalidValue);
@@ -466,8 +456,7 @@ int launch(const void* task_chunk, const void* coords_rel, const void* values, c
         }
     }
     kernel<<<static_cast<unsigned>(blocks), kThreads, smem_bytes, stream>>>(
-        tc, cr, vals, mt, nnz, dst, P, N, R, mode, static_cast<int>(bpt), staged_mask, direct,
-        pol);
+        tc, cr, vals, mt, nnz, dst, P, N, R, mode, static_cast<int>(bpt), staged_mask, pol);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -77,18 +77,11 @@ def plan_pinv(rank: int, smem_budget: int, tier: str | None = None) -> PinvLaunc
     raise ValueError(f"unknown tier {tier!r}; expected one of {TIERS}")
 
 
-def _entry():
-    lib = _build.load(_SOURCE)
-    block, warp = lib.prism_gram_pinv_f32, lib.prism_gram_pinv_warp_f32
-    if block.argtypes is None:
-        block.restype = warp.restype = ctypes.c_int
-        block.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                          ctypes.c_double, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-        warp.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                         ctypes.c_double, ctypes.c_void_p]
-        lib.prism_cuda_error_string.restype = ctypes.c_char_p
-        lib.prism_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib, block, warp
+#: The C entries' arguments before the stream: v, out, B, R, rtol, and the
+#: block design's scratch and shared-memory bytes.
+_WARP_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                  ctypes.c_double]
+_BLOCK_ARGTYPES = [*_WARP_ARGTYPES, ctypes.c_void_p, ctypes.c_longlong]
 
 
 def gram_pinv(v: torch.Tensor, *, launch: PinvLaunch | None = None) -> torch.Tensor:
@@ -119,16 +112,13 @@ def gram_pinv(v: torch.Tensor, *, launch: PinvLaunch | None = None) -> torch.Ten
         raise ValueError(f"unknown tier {launch.tier!r}; expected one of {TIERS}")
     scratch = (torch.empty(n * launch.scratch_bytes // 8, dtype=torch.float64, device=v.device)
                if launch.scratch_bytes else None)
-    lib, block, warp = _entry()
-    rtol = ref.gram_pinv_rtol(rank)
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        if launch.tier == "warp":
-            rc = warp(v.data_ptr(), out.data_ptr(), n, rank, rtol, stream)
-        else:
-            rc = block(v.data_ptr(), out.data_ptr(), n, rank, rtol,
-                       0 if scratch is None else scratch.data_ptr(), launch.smem_bytes, stream)
-    tiles.raise_on(rc, lib, "gram_pinv", launch)
+    args = (v.data_ptr(), out.data_ptr(), n, rank, ref.gram_pinv_rtol(rank))
+    if launch.tier == "warp":
+        symbol, argtypes = "prism_gram_pinv_warp_f32", _WARP_ARGTYPES
+    else:
+        symbol, argtypes = "prism_gram_pinv_f32", _BLOCK_ARGTYPES
+        args += (0 if scratch is None else scratch.data_ptr(), launch.smem_bytes)
+    _build.call(_SOURCE, symbol, argtypes, *args, device=v.device, context=launch)
     launches += 1
     return out
 

@@ -26,18 +26,7 @@ launches = 0
 _SOURCE = "sum_squares"
 THREADS = 256  # kThreads
 MAX_BLOCKS = 1024  # kMaxBlocks: the partials the wrapper sums
-
-
-def _entry():
-    lib = _build.load(_SOURCE)
-    fn = lib.prism_sum_squares_f32
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p]
-        lib.prism_cuda_error_string.restype = ctypes.c_char_p
-        lib.prism_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib, fn
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int]
 
 
 def sum_squares(values: torch.Tensor) -> torch.Tensor:
@@ -60,13 +49,8 @@ def sum_squares(values: torch.Tensor) -> torch.Tensor:
         return torch.zeros((), dtype=torch.float64, device=values.device)
     blocks = min(MAX_BLOCKS, -(-n // THREADS))
     partials = torch.empty(blocks, dtype=torch.float64, device=values.device)
-    lib, fn = _entry()
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        rc = fn(values.data_ptr(), n, partials.data_ptr(), blocks, stream)
-    if rc != 0:
-        raise _build.KernelError(f"sum_squares kernel launch failed: "
-                                 f"{lib.prism_cuda_error_string(rc).decode()} "
-                                 f"({rc}; n = {n}, blocks = {blocks})")
+    _build.call(_SOURCE, "prism_sum_squares_f32", _ARGTYPES, values.data_ptr(), n,
+                partials.data_ptr(), blocks, device=values.device,
+                context=f"n = {n}, blocks = {blocks}")
     launches += 1
     return partials.sum()

@@ -1,8 +1,9 @@
 """Launch plans of the two spMTTKRP kernels, float and fixed point: which
 tier a launch takes, how many blocks share a task and how many bytes of
-dynamic shared memory it needs.  Mirrors `csrc/mttkrp_tiles.cuh`, which
-holds every launch's plan against its own layout and refuses one that
-differs.  `plan_launch` is pure Python, so the CPU tests reach it.
+dynamic shared memory it needs; and the one input check and launch both
+wrappers make.  Mirrors `csrc/mttkrp_tiles.cuh`, which holds every launch's
+plan against its own layout and refuses one that differs.  `plan_launch` is
+pure Python, so the CPU tests reach it.
 
 Tiers (see the header's notes):
 
@@ -14,9 +15,7 @@ Tiers (see the header's notes):
                slots on one output row and per r.
 
 Every tier adds its sums straight into the (I_pad, R) output that
-`kernels/ops.py` zero-fills (`direct`), at rows task_chunk[t, mode]·S_mode
-+ [0, S_mode); the per-task (T, S_mode, R) partials of the plain version's
-contract are the other output (`new_output`, without `direct`).
+`kernels/ops.py` zero-fills, at rows task_chunk[t, mode]·S_mode + [0, S_mode).
 """
 from __future__ import annotations
 
@@ -25,7 +24,7 @@ import dataclasses
 
 import torch
 
-from ._build import KernelError
+from . import _build
 
 __all__ = ["SMEM_BUDGET", "TIERS", "LaunchPlan", "plan_launch", "task_smem_bytes"]
 
@@ -40,7 +39,6 @@ GLOBAL_TILE = 1024    # slots per block in the global tier (kGlobalTile)
 MIN_BLOCKS = 4 * 132
 _MIN_SPAN = 8 * RING  # fewest slots a block of a split task takes
 _MODE_INFO_BYTES = 32
-_LAYOUT_MISMATCH = -1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,14 +51,6 @@ class LaunchPlan:
     @property
     def staged_mask(self) -> int:
         return sum(1 << m for m in self.staged)
-
-    @property
-    def zero_filled(self) -> bool:
-        """Whether the (T, S_mode, R) partials output must start at zero:
-        the kernel adds into it (global tier, or a task split across
-        blocks) instead of writing every block once.  The direct output
-        always starts at zero."""
-        return self.tier == "global" or self.blocks_per_task > 1
 
 
 def _align16(x: int) -> int:
@@ -147,29 +137,48 @@ def check_nnz_per_task(nnz_per_task, coords_rel: torch.Tensor) -> None:
                          f"{tuple(nnz_per_task.shape)}")
 
 
-def launch_args(factors, mode: int, chunk_shape, plan: LaunchPlan, device) -> tuple:
-    """(meta, chunk, tier id, blocks per task, staged mask, smem bytes) for
-    the C entry.  meta is the (3, N) int64 table of factor addresses, rows
-    and chunk sizes, pinned and copied without blocking, so the launch adds
-    no host synchronisation; chunk is the chunk shape in host memory."""
-    meta = torch.tensor(
-        [[0 if m == mode else f.data_ptr() for m, f in enumerate(factors)],
-         [f.shape[0] for f in factors],
-         list(chunk_shape)], dtype=torch.int64).pin_memory()
-    meta = meta.to(device, non_blocking=True)
-    chunk = (ctypes.c_longlong * len(chunk_shape))(*chunk_shape)
-    return (meta, chunk, TIERS.index(plan.tier), plan.blocks_per_task, plan.staged_mask,
-            plan.smem_bytes)
-
-
-def new_output(plan: LaunchPlan, shape, dtype, device) -> torch.Tensor:
-    """The (T, S_mode, R) partials output: zero-filled where the kernel adds
-    into it, else left for the kernel to write whole."""
-    return (torch.zeros if plan.zero_filled else torch.empty)(shape, dtype=dtype, device=device)
+def check_inputs(factors, task_chunk, coords_rel, values, mode: int, chunk_shape, *,
+                 names=("factors", "values"), factor_dtype=None, value_dtype=None) -> None:
+    """A wrapper's inputs on the card: at least 2 modes, (T, N) int32
+    task_chunk, (T, P, N) int32 coords_rel, (T, P) values and (rows >= 1, R)
+    factors, all contiguous on coords_rel's CUDA device.  `names` are the
+    factors' and values' in the messages; `factor_dtype` and `value_dtype`
+    default to the first factor's and the values' own (the caller checks
+    those)."""
+    if coords_rel.device.type != "cuda":
+        raise ValueError(f"no kernel for device {coords_rel.device}")
+    fname, vname = names
+    n = len(factors)
+    if n < 2:
+        raise ValueError(f"spMTTKRP needs at least 2 modes; got {n}")
+    if not 0 <= mode < n or len(chunk_shape) != n:
+        raise ValueError(f"mode {mode} / chunk_shape {chunk_shape} do not fit {n} modes")
+    if coords_rel.dim() != 3 or coords_rel.shape[2] != n:
+        raise ValueError(f"coords_rel must be (T, P, {n}); got {tuple(coords_rel.shape)}")
+    t, p, _ = coords_rel.shape
+    if tuple(task_chunk.shape) != (t, n) or tuple(values.shape) != (t, p):
+        raise ValueError(
+            f"task_chunk {tuple(task_chunk.shape)} / {vname} {tuple(values.shape)} "
+            f"do not match coords_rel {tuple(coords_rel.shape)}")
+    fdtype = factors[0].dtype if factor_dtype is None else factor_dtype
+    rank = factors[0].shape[1]
+    for name, x, dtype in [("task_chunk", task_chunk, torch.int32),
+                           ("coords_rel", coords_rel, torch.int32),
+                           (vname, values, values.dtype if value_dtype is None else value_dtype),
+                           *[(f"{fname}[{m}]", f, fdtype) for m, f in enumerate(factors)]]:
+        if x.device != coords_rel.device:
+            raise ValueError(f"{name} is on {x.device}, coords_rel on {coords_rel.device}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}; got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for m, f in enumerate(factors):
+        if f.dim() != 2 or f.shape[1] != rank or (m != mode and f.shape[0] < 1):
+            raise ValueError(f"{fname}[{m}] must be (rows >= 1, {rank}); got {tuple(f.shape)}")
 
 
 def check_out(out: torch.Tensor, dtype, s_mode: int, rank: int, device) -> None:
-    """The direct output: (rows, R), a whole number of S_mode-row chunks,
+    """The output: (rows, R), a whole number of S_mode-row chunks,
     contiguous, of `dtype` on `device`.  The caller guarantees that every
     task_chunk[:, mode] < rows / S_mode (reading it would wait on the card)."""
     if out.device != device:
@@ -183,21 +192,48 @@ def check_out(out: torch.Tensor, dtype, s_mode: int, rank: int, device) -> None:
         raise ValueError("out must be contiguous")
 
 
-def raise_on(rc: int, lib, name: str, plan: LaunchPlan) -> None:
-    if rc == _LAYOUT_MISMATCH:
-        raise KernelError(f"{name} kernel refused the launch: the plan disagrees with the "
-                           f"kernel's layout ({plan})")
-    if rc != 0:
-        raise KernelError(f"{name} kernel launch failed: "
-                           f"{lib.prism_cuda_error_string(rc).decode()} ({rc}; {plan})")
+def launch(source: str, symbol: str, factors, task_chunk, coords_rel, values, *, mode: int,
+           chunk_shape, nnz_per_task, plan: LaunchPlan | None, out: torch.Tensor,
+           trailing=()) -> bool:
+    """Adds the spMTTKRP of inputs that passed `check_inputs` into `out`
+    (float32 for float values, int32 for integer ones) through the C entry
+    `symbol` of csrc/`source`.cu, in `plan` or else the one `plan_launch`
+    picks for the card; `trailing` are the entry's last ints.  Returns
+    whether it launched: with no task, slot or rank it adds nothing.
+
+    The factor addresses, rows and chunk sizes go to the card as a (3, N)
+    int64 table, pinned and copied without blocking, so the launch adds no
+    host synchronisation."""
+    check_nnz_per_task(nnz_per_task, coords_rel)
+    t, p, n = coords_rel.shape
+    rank = factors[0].shape[1]
+    device = coords_rel.device
+    check_out(out, torch.float32 if values.is_floating_point() else torch.int32,
+              chunk_shape[mode], rank, device)
+    if t == 0 or p == 0 or rank == 0:
+        return False
+    if plan is None:
+        plan = plan_launch(t, p, chunk_shape, mode, rank, factor_bytes=factors[0].element_size(),
+                           value_bytes=values.element_size(), smem_budget=device_budget(device))
+    meta = torch.tensor(
+        [[0 if m == mode else f.data_ptr() for m, f in enumerate(factors)],
+         [f.shape[0] for f in factors],
+         list(chunk_shape)], dtype=torch.int64).pin_memory()
+    meta = meta.to(device, non_blocking=True)
+    _build.call(source, symbol, entry_argtypes(len(trailing)), task_chunk.data_ptr(),
+                coords_rel.data_ptr(), values.data_ptr(), meta.data_ptr(),
+                0 if nnz_per_task is None else nnz_per_task.data_ptr(), out.data_ptr(), t, p, n,
+                rank, mode, (ctypes.c_longlong * n)(*chunk_shape), TIERS.index(plan.tier),
+                plan.blocks_per_task, plan.staged_mask, plan.smem_bytes, *trailing,
+                device=device, context=plan)
+    return True
 
 
 def entry_argtypes(n_trailing_ints: int) -> list:
-    """ctypes argument types of a C entry: the device addresses of
-    task_chunk, coords_rel, values, meta, nnz_per_task (or null) and the
-    output; T, P; N, R, mode; the host chunk shape; tier, blocks per task,
-    staged mask, smem bytes; direct; `n_trailing_ints` ints; the stream."""
+    """ctypes argument types of a C entry before its stream: the device
+    addresses of task_chunk, coords_rel, values, meta, nnz_per_task (or
+    null) and the output; T, P; N, R, mode; the host chunk shape; tier,
+    blocks per task, staged mask, smem bytes; `n_trailing_ints` ints."""
     return ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_longlong,
-               ctypes.c_uint, ctypes.c_longlong, ctypes.c_int]
-            + [ctypes.c_int] * n_trailing_ints + [ctypes.c_void_p])
+               ctypes.c_uint, ctypes.c_longlong] + [ctypes.c_int] * n_trailing_ints)

@@ -110,14 +110,20 @@ def _break_build(monkeypatch, tmp_path):
 
 
 def _break_launch(monkeypatch, tmp_path):
-    """A kernel entry that refuses every launch."""
+    """The MTTKRP kernels' C entries refuse every launch."""
     class Lib:
         @staticmethod
         def prism_cuda_error_string(rc):
             return b"refused for the test"
 
-    monkeypatch.setattr(mttkrp_kernel, "_entry", lambda: (Lib, lambda *args: 1))
-    monkeypatch.setattr(mttkrp_fixed_kernel, "_entry", lambda: (Lib, lambda *args: 1))
+    symbol = _build._symbol
+
+    def refusing(source, *args):
+        if source in ("mttkrp", "mttkrp_fixed"):
+            return Lib, lambda *_: 1
+        return symbol(source, *args)
+
+    monkeypatch.setattr(_build, "_symbol", refusing)
 
 
 @pytest.mark.parametrize("fault", ["build", "launch"])

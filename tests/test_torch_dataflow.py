@@ -284,6 +284,8 @@ def test_mutation_is_caught_at_its_line(case, tmp_path):
 
 #: port function → its counterpart in the JAX package.  `ops.pad_factor` is
 #: left out: the reference also pads the rank to 128 lanes, the port does not.
+#: So are the kernel wrappers: they add into the op's (I_pad, R) output, and
+#: the TPU kernels' (T, S_mode, R) partials are the plain versions' (`ref.py`).
 COUNTERPARTS = {
     "src/repro_torch/core/mttkrp.py::mttkrp_coo": "src/repro/core/mttkrp.py::mttkrp_coo",
     "src/repro_torch/core/mttkrp.py::mttkrp_coo_fixed": "src/repro/core/mttkrp.py::mttkrp_coo_fixed",
@@ -297,10 +299,6 @@ COUNTERPARTS = {
     "src/repro_torch/kernels/ops.py::mttkrp_kernel_op": "src/repro/kernels/ops.py::mttkrp_pallas",
     "src/repro_torch/kernels/ops.py::mttkrp_fixed_kernel_op":
         "src/repro/kernels/ops.py::mttkrp_fixed_pallas",
-    "src/repro_torch/kernels/mttkrp_kernel.py::mttkrp_local":
-        "src/repro/kernels/mttkrp_kernel.py::mttkrp_pallas_local",
-    "src/repro_torch/kernels/mttkrp_fixed_kernel.py::mttkrp_fixed_local":
-        "src/repro/kernels/mttkrp_fixed_kernel.py::mttkrp_fixed_pallas_local",
     "src/repro_torch/kernels/ref.py::mttkrp_local_ref": "src/repro/kernels/ref.py::mttkrp_local_ref",
     "src/repro_torch/kernels/ref.py::mttkrp_fixed_local_ref":
         "src/repro/kernels/ref.py::mttkrp_fixed_local_ref",

@@ -212,8 +212,9 @@ def test_fixed_ops_wrap_like_xla():
 @pytest.mark.parametrize(("shape", "nnz", "cs", "cap", "rank", "qf_name", "shift"),
                          [CASES[0], CASES[1], CASES[6]])
 def test_local_cpu_path_matches_oracle_and_pallas(shape, nnz, cs, cap, rank, qf_name, shift):
-    """The wrapper's CPU path (its plain version) against the jnp oracle and
-    the interpret-mode Pallas kernel; the full op against the full Pallas
+    """The plain partials against the jnp oracle and the interpret-mode
+    Pallas kernel; the wrapper's CPU path (their sum added into its output)
+    against the summed Pallas partials; the full op against the full Pallas
     op.  Small shapes: interpret mode is slow."""
     _st, ct, qf, vq, jq, tq = _setup(shape, nnz, cs, cap, rank, qf_name)
     q = _q(qf, vq, shift)
@@ -222,18 +223,24 @@ def test_local_cpu_path_matches_oracle_and_pallas(shape, nnz, cs, cap, rank, qf_
     jargs = (jnp.asarray(ct.task_chunk), jnp.asarray(ct.coords_rel),
              jnp.asarray(vq.quantize_np(ct.values)))
     targs = (_t(ct.task_chunk), _t(ct.coords_rel), _t(vq.quantize_np(ct.values)))
+    rng = np.random.default_rng(7)
     before = mttkrp_fixed_kernel.launches
     for mode in range(len(shape)):
-        got = rt.mttkrp_fixed_local(tpadded, *targs, mode=mode, chunk_shape=ct.chunk_shape, **q)
         plain = pref.mttkrp_fixed_local_ref(tpadded, *targs, mode=mode,
                                             chunk_shape=ct.chunk_shape, **q)
         oracle = kref.mttkrp_fixed_local_ref(jpadded, *jargs, mode=mode,
                                              chunk_shape=ct.chunk_shape, **q)
         pallas = mttkrp_fixed_pallas_local(jpadded, *jargs, mode=mode,
                                            chunk_shape=ct.chunk_shape, interpret=True, **q)
-        _assert_equal(got, oracle)
         _assert_equal(plain, oracle)
-        _assert_equal(got, pallas)
+        _assert_equal(plain, pallas)
+        rows = -(-shape[mode] // cs[mode]) * cs[mode]
+        base = rng.integers(-1000, 1000, (rows, rank), dtype=np.int32)
+        out = torch.from_numpy(base.copy())
+        assert rt.mttkrp_fixed_local(tpadded, *targs, mode=mode, chunk_shape=ct.chunk_shape,
+                                     out=out, **q) is out
+        _assert_equal(out, base + np.asarray(kref.reduce_local(
+            pallas, jargs[0], mode=mode, chunk_shape=ct.chunk_shape, out_dim=rows)))
         want = mttkrp_fixed_pallas(jq, *jargs, mode=mode, chunk_shape=ct.chunk_shape,
                                    out_dim=shape[mode], interpret=True, **q)
         got = rt.mttkrp_fixed_kernel_op(tq, *targs, mode=mode, chunk_shape=ct.chunk_shape,
@@ -249,7 +256,8 @@ def test_fixed_wrapper_refuses_other_devices():
         rt.mttkrp_fixed_local([torch.zeros(2, 2, dtype=torch.int16)] * 2,
                               torch.zeros(1, 2, dtype=torch.int32), meta,
                               torch.zeros(1, 2, dtype=torch.int16), mode=0,
-                              chunk_shape=(2, 2), matrix_frac=7, value_frac=7)
+                              chunk_shape=(2, 2), matrix_frac=7, value_frac=7,
+                              out=torch.zeros(2, 2, dtype=torch.int32, device="meta"))
 
 
 def test_qfactors_from_reference_keeps_integer_types():

@@ -1,5 +1,7 @@
 """The CUDA spMTTKRP kernels, float and fixed point, against their plain
-PyTorch versions on the card.
+PyTorch versions on the card: each launch adds into an (I_pad, R) output
+that already holds numbers, held to those numbers plus the summed plain
+per-task partials (`ref.reduce_local(ref.mttkrp_*_local_ref(...))`).
 
 Run on a machine with an NVIDIA GPU and nvcc:
 
@@ -81,20 +83,39 @@ def _assert_sum_order_close(got, want, abs_terms):
     assert bool((err <= tol).all()), f"max err {err.max().item()} (max tol {tol.max().item()})"
 
 
+def _base(kind, ct, mode, rank, device, seed=7):
+    """An (I_pad, R) output that already holds numbers: float in [-0.5,
+    0.5), fixed over all of int32 (the kernels' sums wrap into it)."""
+    rows = -(-ct.tensor_shape[mode] // ct.chunk_shape[mode]) * ct.chunk_shape[mode]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if kind == "float":
+        return torch.rand((rows, rank), generator=gen, device=device) - 0.5
+    return torch.randint(-2**31, 2**31 - 1, (rows, rank), generator=gen, device=device,
+                         dtype=torch.int32)
+
+
+def _summed(local, dev, mode, cs, base):
+    """`base` plus the sum of per-task partials, as the kernels add it."""
+    return base + pref.reduce_local(local, dev["task_chunk"], mode=mode, chunk_shape=cs,
+                                    out_dim=base.shape[0])
+
+
 def _check_every_mode(factors, ct, dev):
     padded = [rt.pad_factor(f, ct.chunk_shape[m]) for m, f in enumerate(factors)]
     abs_padded = [f.abs() for f in padded]
     args = (dev["task_chunk"], dev["coords_rel"])
+    cs = ct.chunk_shape
     for mode in range(ct.ndim):
+        base = _base("float", ct, mode, factors[0].shape[1], dev["values"].device)
+        out = base.clone()
         before = mttkrp_kernel.launches
-        got = rt.mttkrp_local(padded, *args, dev["values"], mode=mode, chunk_shape=ct.chunk_shape)
-        assert mttkrp_kernel.launches == before + 1
-        assert got.is_cuda and got.shape == (ct.num_tasks, ct.chunk_shape[mode],
-                                              factors[0].shape[1])
-        want = pref.mttkrp_local_ref(padded, *args, dev["values"], mode=mode,
-                                     chunk_shape=ct.chunk_shape)
-        abs_terms = pref.mttkrp_local_ref(abs_padded, *args, dev["values"].abs(), mode=mode,
-                                          chunk_shape=ct.chunk_shape)
+        got = rt.mttkrp_local(padded, *args, dev["values"], mode=mode, chunk_shape=cs, out=out)
+        assert mttkrp_kernel.launches == before + 1 and got is out
+        want = _summed(pref.mttkrp_local_ref(padded, *args, dev["values"], mode=mode,
+                                             chunk_shape=cs), dev, mode, cs, base)
+        abs_terms = _summed(pref.mttkrp_local_ref(abs_padded, *args, dev["values"].abs(),
+                                                  mode=mode, chunk_shape=cs),
+                            dev, mode, cs, base.abs())
         _assert_sum_order_close(got, want, abs_terms)
 
         out_dim = ct.tensor_shape[mode]
@@ -128,15 +149,16 @@ def test_kernel_split_powerlaw_chunks_five_modes(cuda):
 
 def test_kernel_wrapper_rejects_what_it_cannot_take(cuda):
     factors, ct, dev = _inputs((32, 32, 32), 400, (8, 8, 8), 16, 4, cuda)
+    kw = dict(mode=0, chunk_shape=ct.chunk_shape, out=torch.zeros((32, 4), device=cuda))
     with pytest.raises(TypeError, match="float32"):
         rt.mttkrp_local([f.double() for f in factors], dev["task_chunk"], dev["coords_rel"],
-                        dev["values"], mode=0, chunk_shape=ct.chunk_shape)
+                        dev["values"], **kw)
     with pytest.raises(TypeError, match="int32"):
         rt.mttkrp_local(factors, dev["task_chunk"].long(), dev["coords_rel"],
-                        dev["values"], mode=0, chunk_shape=ct.chunk_shape)
+                        dev["values"], **kw)
     with pytest.raises(ValueError, match="is on"):
         rt.mttkrp_local(factors, dev["task_chunk"].cpu(), dev["coords_rel"],
-                        dev["values"], mode=0, chunk_shape=ct.chunk_shape)
+                        dev["values"], **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -158,13 +180,15 @@ def _check_fixed_every_mode(factors, ct, dev, preset, scale=1.0):
     qfactors, qvalues, q = _fixed_inputs(factors, ct, dev, preset, scale)
     padded = [rt.pad_factor(f, ct.chunk_shape[m]) for m, f in enumerate(qfactors)]
     args = (dev["task_chunk"], dev["coords_rel"], qvalues)
+    cs = ct.chunk_shape
     for mode in range(ct.ndim):
+        base = _base("fixed", ct, mode, qfactors[0].shape[1], qvalues.device)
+        out = base.clone()
         before = mttkrp_fixed_kernel.launches
-        got = rt.mttkrp_fixed_local(padded, *args, mode=mode, chunk_shape=ct.chunk_shape, **q)
-        assert mttkrp_fixed_kernel.launches == before + 1
-        assert got.is_cuda and got.dtype == torch.int32
-        want = pref.mttkrp_fixed_local_ref(padded, *args, mode=mode,
-                                           chunk_shape=ct.chunk_shape, **q)
+        got = rt.mttkrp_fixed_local(padded, *args, mode=mode, chunk_shape=cs, out=out, **q)
+        assert mttkrp_fixed_kernel.launches == before + 1 and got is out
+        want = _summed(pref.mttkrp_fixed_local_ref(padded, *args, mode=mode, chunk_shape=cs, **q),
+                       dev, mode, cs, base)
         torch.cuda.synchronize()
         assert torch.equal(got, want), f"local, mode {mode}"
         out_dim = ct.tensor_shape[mode]
@@ -207,7 +231,8 @@ def test_fixed_kernel_wrapper_rejects_what_it_cannot_take(cuda):
     factors, ct, dev = _inputs((32, 32, 32), 400, (8, 8, 8), 16, 4, cuda)
     qfactors, qvalues, q = _fixed_inputs(factors, ct, dev, "int3")
     args = (dev["task_chunk"], dev["coords_rel"], qvalues)
-    kw = dict(mode=0, chunk_shape=ct.chunk_shape)
+    kw = dict(mode=0, chunk_shape=ct.chunk_shape,
+              out=torch.zeros((32, 4), dtype=torch.int32, device=cuda))
     # int3's int8 factors declared as int15-12's Q.15
     with pytest.raises(TypeError, match="cannot hold 15 fractional bits"):
         rt.mttkrp_fixed_local(qfactors, *args, **kw, matrix_frac=15, value_frac=q["value_frac"],
@@ -242,23 +267,31 @@ TIER_CASES = [
 ]
 
 
-def _local_pair(kind, factors, ct, dev, mode, **kw):
-    """(kernel, plain) local blocks of one mode; float factors are padded,
-    fixed ones quantized (int7) and padded, unless kw says `padded=False`."""
+def _local_pair(kind, factors, ct, dev, mode, preset="int7", **kw):
+    """(kernel, plain, Σ|terms|) of one mode: the kernel launched (with `kw`)
+    into an output that already holds `_base`, the plain version as that
+    base plus the summed per-task partials; float factors are padded, fixed
+    ones quantized (`preset`) and padded, unless kw says `padded=False`."""
     pad = kw.pop("padded", True)
     args = (dev["task_chunk"], dev["coords_rel"])
     cs = ct.chunk_shape
+    base = _base(kind, ct, mode, factors[0].shape[1], dev["values"].device)
     if kind == "float":
         fs = [rt.pad_factor(f, cs[m]) if pad else f for m, f in enumerate(factors)]
-        got = rt.mttkrp_local(fs, *args, dev["values"], mode=mode, chunk_shape=cs, **kw)
-        want = pref.mttkrp_local_ref(fs, *args, dev["values"], mode=mode, chunk_shape=cs)
-        terms = pref.mttkrp_local_ref([f.abs() for f in fs], *args, dev["values"].abs(),
-                                      mode=mode, chunk_shape=cs)
+        got = rt.mttkrp_local(fs, *args, dev["values"], mode=mode, chunk_shape=cs,
+                              out=base.clone(), **kw)
+        want = _summed(pref.mttkrp_local_ref(fs, *args, dev["values"], mode=mode,
+                                             chunk_shape=cs), dev, mode, cs, base)
+        terms = _summed(pref.mttkrp_local_ref([f.abs() for f in fs], *args, dev["values"].abs(),
+                                              mode=mode, chunk_shape=cs), dev, mode, cs,
+                        base.abs())
         return got, want, terms
-    qfactors, qvalues, q = _fixed_inputs(factors, ct, dev, "int7")
+    qfactors, qvalues, q = _fixed_inputs(factors, ct, dev, preset)
     fs = [rt.pad_factor(f, cs[m]) if pad else f for m, f in enumerate(qfactors)]
-    got = rt.mttkrp_fixed_local(fs, *args, qvalues, mode=mode, chunk_shape=cs, **q, **kw)
-    want = pref.mttkrp_fixed_local_ref(fs, *args, qvalues, mode=mode, chunk_shape=cs, **q)
+    got = rt.mttkrp_fixed_local(fs, *args, qvalues, mode=mode, chunk_shape=cs, out=base.clone(),
+                                **q, **kw)
+    want = _summed(pref.mttkrp_fixed_local_ref(fs, *args, qvalues, mode=mode, chunk_shape=cs,
+                                               **q), dev, mode, cs, base)
     return got, want, None
 
 
@@ -270,8 +303,9 @@ def _assert_pair(kind, got, want, terms):
         assert torch.equal(got, want)
 
 
-def _plan(kind, ct, mode, rank, **kw):
-    fb, vb = (4, 4) if kind == "float" else (2, 2)  # int7: int16 factors, int16 qvalues
+def _plan(kind, ct, mode, rank, preset="int7", **kw):
+    # int7: int16 factors and qvalues; int15-12: int32 factors, int16 qvalues
+    fb, vb = (4, 4) if kind == "float" else (2 if preset == "int7" else 4, 2)
     return tiles.plan_launch(ct.num_tasks, ct.capacity, ct.chunk_shape, mode, rank,
                              factor_bytes=fb, value_bytes=vb, **kw)
 
@@ -288,31 +322,10 @@ def test_kernels_in_the_tier_their_shapes_give(cuda, kind, shape, nnz, cs, cap, 
 
 
 @pytest.mark.parametrize("kind", ["float", "fixed"])
-@pytest.mark.parametrize("tier", ["global", "accumulator", "staged"])
-def test_kernels_in_every_tier_forced(cuda, kind, tier):
-    factors, ct, dev = _inputs((40, 30, 50), 600, (16, 8, 16), 32, 10, cuda)
-    for mode in range(ct.ndim):
-        plan = _plan(kind, ct, mode, 10, tier=tier)
-        assert plan.tier == tier
-        got, want, terms = _local_pair(kind, factors, ct, dev, mode, plan=plan)
-        _assert_pair(kind, got, want, terms)
-
-
-@pytest.mark.parametrize("kind", ["float", "fixed"])
 @pytest.mark.parametrize("rank", [1, 3, 10, 33, 64])
 def test_kernels_every_rank(cuda, kind, rank):
     factors, ct, dev = _inputs((40, 30, 50), 1500, (16, 8, 16), 64, rank, cuda)
     for mode in range(ct.ndim):
-        for nnz in (None, dev["nnz_per_task"]):
-            got, want, terms = _local_pair(kind, factors, ct, dev, mode, nnz_per_task=nnz)
-            _assert_pair(kind, got, want, terms)
-
-
-@pytest.mark.parametrize("kind", ["float", "fixed"])
-def test_kernels_one_task_split_across_blocks(cuda, kind):
-    factors, ct, dev = _inputs((300, 200, 400), 400_000, (300, 200, 400), None, 10, cuda)
-    for mode in range(ct.ndim):
-        assert _plan(kind, ct, mode, 10).blocks_per_task > 1
         for nnz in (None, dev["nnz_per_task"]):
             got, want, terms = _local_pair(kind, factors, ct, dev, mode, nnz_per_task=nnz)
             _assert_pair(kind, got, want, terms)
@@ -337,22 +350,37 @@ def test_kernels_unpadded_factors_and_out_of_chunk_coordinates(cuda, kind, tier)
 
 
 @pytest.mark.parametrize("kind", ["float", "fixed"])
-def test_kernels_write_padding_tasks_zero(cuda, kind):
-    """Padding tasks (nnz 0) get their zero block on the unfilled output."""
+def test_padding_tasks_add_nothing_to_out(cuda, kind):
+    """Padding tasks (nnz 0) add nothing: with the real tasks, the output
+    holds the real tasks' sums; alone, it keeps what it held, bit for bit."""
     st = rt.random_tensor((40, 30, 50), 600, seed=3)
     ct = rt.chunk_tensor(st, (16, 8, 16), 32)
-    ct = ct.pad_tasks(ct.num_tasks + 7)
+    n_real = ct.num_tasks
+    ct = ct.pad_tasks(n_real + 7)
     dev = rt.chunked_device_arrays(ct, cuda)
     rng = np.random.default_rng(4)
     factors = [torch.from_numpy(rng.uniform(-1, 1, (d, 10)).astype(np.float32)).to(cuda)
                for d in st.shape]
+    qfactors, qvalues, q = _fixed_inputs(factors, ct, dev, "int7")
+    cs = ct.chunk_shape
+    args = (dev["task_chunk"][n_real:], dev["coords_rel"][n_real:])
     for mode in range(ct.ndim):
-        plan = _plan(kind, ct, mode, 10)
-        assert not plan.zero_filled
         got, want, terms = _local_pair(kind, factors, ct, dev, mode,
                                        nnz_per_task=dev["nnz_per_task"])
         _assert_pair(kind, got, want, terms)
-        assert not bool(got[-7:].any())
+        base = _base(kind, ct, mode, 10, cuda)
+        for nnz in (None, dev["nnz_per_task"][n_real:]):
+            out = base.clone()
+            if kind == "float":
+                rt.mttkrp_local([rt.pad_factor(f, cs[m]) for m, f in enumerate(factors)], *args,
+                                dev["values"][n_real:], mode=mode, chunk_shape=cs,
+                                nnz_per_task=nnz, out=out)
+            else:
+                rt.mttkrp_fixed_local([rt.pad_factor(f, cs[m]) for m, f in enumerate(qfactors)],
+                                      *args, qvalues[n_real:], mode=mode, chunk_shape=cs,
+                                      nnz_per_task=nnz, out=out, **q)
+            torch.cuda.synchronize()
+            assert torch.equal(out, base), mode
 
 
 def test_kernel_launch_the_card_refuses_raises(cuda):
@@ -419,42 +447,9 @@ DIRECT_CASES = {
     "more-tasks-than-min-blocks": ((120, 120, 120), 20_000, (8, 8, 8), 16, 10, "uniform"),
     # one task: the task tiers split it over blocks, the global tier over tiles
     "split-tasks": ((300, 200, 400), 100_000, (300, 200, 400), None, 10, "uniform"),
+    # 48 small tasks whose shapes give the staged tier
+    "small-tasks": ((40, 30, 50), 600, (16, 8, 16), 32, 10, "uniform"),
 }
-
-
-def _direct_pair(kind, factors, ct, dev, mode, tier, base):
-    """(kernel, plain, Σ|terms|, plan) of one mode's direct output added into
-    `base`, the kernel launched in `tier` through `out=` (fixed: int15-12,
-    the fixed cells' format), the plain version as the summed per-task
-    partials (`reduce_local(mttkrp_local_ref(...))`) plus `base`."""
-    args = (dev["task_chunk"], dev["coords_rel"])
-    cs, nnz, rank = ct.chunk_shape, dev["nnz_per_task"], base.shape[1]
-    rows = base.shape[0]
-
-    def summed(local):
-        return pref.reduce_local(local, dev["task_chunk"], mode=mode, chunk_shape=cs,
-                                 out_dim=rows)
-
-    if kind == "float":
-        fs = [rt.pad_factor(f, cs[m]) for m, f in enumerate(factors)]
-        plan = _plan("float", ct, mode, rank, tier=tier)
-        got = rt.mttkrp_local(fs, *args, dev["values"], mode=mode, chunk_shape=cs,
-                              nnz_per_task=nnz, plan=plan, out=base.clone())
-        want = base + summed(pref.mttkrp_local_ref(fs, *args, dev["values"], mode=mode,
-                                                   chunk_shape=cs))
-        terms = base.abs() + summed(pref.mttkrp_local_ref(
-            [f.abs() for f in fs], *args, dev["values"].abs(), mode=mode, chunk_shape=cs))
-        return got, want, terms, plan
-    qfactors, qvalues, q = _fixed_inputs(factors, ct, dev, "int15-12")
-    fs = [rt.pad_factor(f, cs[m]) for m, f in enumerate(qfactors)]
-    plan = tiles.plan_launch(ct.num_tasks, ct.capacity, cs, mode, rank, tier=tier,
-                             factor_bytes=fs[0].element_size(),
-                             value_bytes=qvalues.element_size())
-    got = rt.mttkrp_fixed_local(fs, *args, qvalues, mode=mode, chunk_shape=cs, **q,
-                                nnz_per_task=nnz, plan=plan, out=base.clone())
-    want = base + summed(pref.mttkrp_fixed_local_ref(fs, *args, qvalues, mode=mode,
-                                                     chunk_shape=cs, **q))
-    return got, want, None, plan
 
 
 @pytest.mark.parametrize("kind", ["float", "fixed"])
@@ -463,8 +458,9 @@ def _direct_pair(kind, factors, ct, dev, mode, tier, base):
 def test_direct_output_every_tier_equals_summed_partials(cuda, kind, tier, case):
     """Every tier, forced through `plan=`, adds each task's sums into the
     output rows task_chunk[t, mode]·S_mode + [0, S_mode) on top of what the
-    output holds: float within 1e-5 of Σ|terms| per entry (only the order of
-    the sums differs: the block's, the runs', the device atomics'), fixed
+    output holds, with and without `nnz_per_task`: float within 1e-5 of
+    Σ|terms| per entry (only the order of the sums differs: the block's, the
+    runs', the device atomics'), fixed (int15-12, the fixed cells' format)
     bit for bit (int32 sums wrap alike in any order)."""
     shape, nnz, cs, cap, rank, dist = DIRECT_CASES[case]
     factors, ct, dev = _inputs(shape, nnz, cs, cap, rank, cuda, distribution=dist)
@@ -473,27 +469,24 @@ def test_direct_output_every_tier_equals_summed_partials(cuda, kind, tier, case)
         assert all(int(np.bincount(st.coords[:, m]).max()) >= nnz // 10 for m in range(4))
     if case == "more-tasks-than-min-blocks":
         assert ct.num_tasks > tiles.MIN_BLOCKS
-    gen = torch.Generator(device=cuda).manual_seed(7)
     for mode in range(ct.ndim):
-        rows = -(-shape[mode] // cs[mode]) * cs[mode]
-        if kind == "float":
-            base = torch.rand((rows, rank), generator=gen, device=cuda) - 0.5
-        else:
-            base = torch.randint(-2**31, 2**31 - 1, (rows, rank), generator=gen, device=cuda,
-                                 dtype=torch.int32)
-        before = (mttkrp_kernel.launches, mttkrp_fixed_kernel.launches)
-        got, want, terms, plan = _direct_pair(kind, factors, ct, dev, mode, tier, base)
-        torch.cuda.synchronize()
+        plan = _plan(kind, ct, mode, rank, preset="int15-12", tier=tier)
         assert plan.tier == tier
         if case == "split-tasks":
             assert ct.num_tasks == 1 and plan.blocks_per_task > 1
-        assert (mttkrp_kernel.launches - before[0], mttkrp_fixed_kernel.launches - before[1]) \
-            == ((1, 0) if kind == "float" else (0, 1))
-        if kind == "float":
-            err, tol = (got - want).abs(), 1e-5 * terms + 1e-6
-            assert bool((err <= tol).all()), f"mode {mode}: max err {err.max().item()}"
-        else:
-            assert torch.equal(got, want), f"mode {mode}"
+        for nnz in (None, dev["nnz_per_task"]):
+            before = (mttkrp_kernel.launches, mttkrp_fixed_kernel.launches)
+            got, want, terms = _local_pair(kind, factors, ct, dev, mode, preset="int15-12",
+                                           nnz_per_task=nnz, plan=plan)
+            torch.cuda.synchronize()
+            assert (mttkrp_kernel.launches - before[0],
+                    mttkrp_fixed_kernel.launches - before[1]) \
+                == ((1, 0) if kind == "float" else (0, 1))
+            if kind == "float":
+                err, tol = (got - want).abs(), 1e-5 * terms + 1e-6
+                assert bool((err <= tol).all()), f"mode {mode}: max err {err.max().item()}"
+            else:
+                assert torch.equal(got, want), f"mode {mode}"
 
 
 @pytest.mark.parametrize("kind", ["float", "fixed"])

@@ -55,11 +55,9 @@ def test_plan_launch_tiers_of_the_smoke_cases(case, widths, want):
         assert plan.smem_bytes <= tiles.SMEM_BUDGET
         if tier == "global":
             assert plan.smem_bytes == 3 * len(case["chunk_shape"]) * 8
-            assert plan.zero_filled
         else:
             assert plan.smem_bytes == tiles.task_smem_bytes(case["chunk_shape"], mode, 10, staged,
                                                             **widths)
-            assert plan.zero_filled == (bpt > 1)
 
 
 def test_task_smem_bytes_layout():
@@ -99,9 +97,9 @@ def test_forced_tiers():
 
 def test_blocks_per_task_split_few_large_tasks_only():
     one = tiles.plan_launch(1, 400_000, (300, 200, 400), 0, 10)
-    assert one.blocks_per_task == 400_000 // 4096 and one.zero_filled
+    assert one.blocks_per_task == 400_000 // 4096
     small = tiles.plan_launch(1, 600, (16, 8, 16), 0, 10)
-    assert small.blocks_per_task == 1 and not small.zero_filled
+    assert small.blocks_per_task == 1
     many = tiles.plan_launch(10_000, 400_000, (300, 200, 400), 0, 10)
     assert many.blocks_per_task == 1
     assert tiles.plan_launch(0, 0, (8, 8, 8), 0, 4).blocks_per_task == 1
@@ -219,8 +217,8 @@ def test_plan_launch_at_delicious_size(widths):
 
 @pytest.mark.parametrize("fixed", [False, True])
 def test_direct_output_on_the_cpu_adds_the_summed_partials(fixed):
-    """Given `out`, the wrappers' plain path adds `reduce_local` of the
-    partials into it, as the kernels add into the (I_pad, R) output."""
+    """The wrappers' plain path adds `reduce_local` of the plain version's
+    partials into `out`, as the kernels add into the (I_pad, R) output."""
     st = rt.random_tensor((30, 40, 20, 12), 900, seed=5, distribution="powerlaw")
     ct = rt.chunk_tensor(st, (8, 16, 8, 12), 24)
     dev = rt.chunked_device_arrays(ct, "cpu")
@@ -239,12 +237,12 @@ def test_direct_output_on_the_cpu_adds_the_summed_partials(fixed):
             qvals = torch.from_numpy(vq.quantize_np(ct.values))
             fs = [qf.quantize(f) for f in padded]
             base = torch.from_numpy(rng.integers(-1000, 1000, (rows, 4), dtype=np.int32))
-            local = rt.mttkrp_fixed_local(fs, *args, qvals, mode=mode, chunk_shape=cs, **q)
+            local = kref.mttkrp_fixed_local_ref(fs, *args, qvals, mode=mode, chunk_shape=cs, **q)
             got = rt.mttkrp_fixed_local(fs, *args, qvals, mode=mode, chunk_shape=cs, **q,
                                         out=base.clone())
         else:
             base = torch.from_numpy(rng.uniform(-1, 1, (rows, 4)).astype(np.float32))
-            local = rt.mttkrp_local(padded, *args, dev["values"], mode=mode, chunk_shape=cs)
+            local = kref.mttkrp_local_ref(padded, *args, dev["values"], mode=mode, chunk_shape=cs)
             got = rt.mttkrp_local(padded, *args, dev["values"], mode=mode, chunk_shape=cs,
                                   out=base.clone())
         want = base + kref.reduce_local(local, dev["task_chunk"], mode=mode, chunk_shape=cs,

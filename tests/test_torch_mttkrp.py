@@ -1,7 +1,8 @@
 """The port's float spMTTKRP against the JAX package on the CPU, over the
 SWEEP of tests/test_kernels.py, every mode, at rtol = atol = 1e-5: the COO
-and chunked ops, the kernel wrapper's CPU path (its plain version) against
-the jnp oracle and the interpret-mode Pallas kernel, and the full kernel op
+and chunked ops, the plain per-task partials against the jnp oracle and the
+interpret-mode Pallas kernel, the kernel wrapper's CPU path (their sum added
+into its output) against the summed Pallas partials, and the full kernel op
 against the full Pallas op.  Same inputs on both sides, made with numpy."""
 import jax.numpy as jnp
 import numpy as np
@@ -71,10 +72,11 @@ def test_local_cpu_path_matches_oracle_and_pallas(shape, nnz, cs, cap, rank):
     _st, factors, ct, pdev, jdev = _setup(shape, nnz, cs, cap, rank)
     jpadded = tuple(pad_factor(f, cs[m]) for m, f in enumerate(_j(factors)))
     tpadded = [rt.pad_factor(f, cs[m]) for m, f in enumerate(_t(factors))]
+    targs = (pdev["task_chunk"], pdev["coords_rel"], pdev["values"])
+    rng = np.random.default_rng(7)
     before = mttkrp_kernel.launches
     for mode in range(len(shape)):
-        got = rt.mttkrp_local(tpadded, pdev["task_chunk"], pdev["coords_rel"], pdev["values"],
-                              mode=mode, chunk_shape=ct.chunk_shape)
+        got = pref.mttkrp_local_ref(tpadded, *targs, mode=mode, chunk_shape=ct.chunk_shape)
         oracle = kref.mttkrp_local_ref(jpadded, jdev["task_chunk"], jdev["coords_rel"],
                                        jdev["values"], mode=mode, chunk_shape=ct.chunk_shape)
         pallas = mttkrp_pallas_local(jpadded, jdev["task_chunk"], jdev["coords_rel"],
@@ -83,6 +85,14 @@ def test_local_cpu_path_matches_oracle_and_pallas(shape, nnz, cs, cap, rank):
         assert got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), np.asarray(oracle), **TOL)
         np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+        rows = -(-shape[mode] // cs[mode]) * cs[mode]
+        base = rng.uniform(-1, 1, (rows, rank)).astype(np.float32)
+        out = torch.from_numpy(base.copy())
+        assert rt.mttkrp_local(tpadded, *targs, mode=mode, chunk_shape=ct.chunk_shape,
+                               out=out) is out
+        want = base + np.asarray(kref.reduce_local(pallas, jdev["task_chunk"], mode=mode,
+                                                   chunk_shape=ct.chunk_shape, out_dim=rows))
+        np.testing.assert_allclose(out.numpy(), want, **TOL)
     assert mttkrp_kernel.launches == before  # the CPU path launches nothing
 
 
@@ -123,10 +133,13 @@ def test_gathers_clamp_and_scatters_drop_like_reference():
     values = np.array([[1.0, 2.0, 3.0]], np.float32)
     two = [factor, rng.uniform(-1, 1, (10, 3)).astype(np.float32)]
     tc = np.zeros((1, 2), np.int32)
-    got = rt.mttkrp_local(_t(two), torch.from_numpy(tc), torch.from_numpy(coords_rel),
-                          torch.from_numpy(values), mode=0, chunk_shape=(4, 4))
+    targs = (torch.from_numpy(tc), torch.from_numpy(coords_rel), torch.from_numpy(values))
+    got = pref.mttkrp_local_ref(_t(two), *targs, mode=0, chunk_shape=(4, 4))
     want = kref.mttkrp_local_ref(_j(two), jnp.asarray(tc), jnp.asarray(coords_rel),
                                  jnp.asarray(values), mode=0, chunk_shape=(4, 4))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    got = rt.mttkrp_local(_t(two), *targs, mode=0, chunk_shape=(4, 4), out=torch.zeros(4, 3))
+    want = kref.reduce_local(want, jnp.asarray(tc), mode=0, chunk_shape=(4, 4), out_dim=4)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -134,4 +147,5 @@ def test_kernel_wrapper_refuses_other_devices():
     meta = torch.zeros((1, 2, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         rt.mttkrp_local([torch.zeros(2, 2)] * 2, torch.zeros(1, 2, dtype=torch.int32), meta,
-                        torch.zeros(1, 2), mode=0, chunk_shape=(2, 2))
+                        torch.zeros(1, 2), mode=0, chunk_shape=(2, 2),
+                        out=torch.zeros(2, 2, device="meta"))

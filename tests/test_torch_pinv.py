@@ -98,7 +98,7 @@ def test_pinv_on_cpu_never_touches_the_kernel(monkeypatch):
         raise AssertionError("the CUDA kernel was reached from a CPU tensor")
 
     monkeypatch.setattr(_build, "load", refuse)
-    monkeypatch.setattr(gram_pinv, "_entry", refuse)
+    monkeypatch.setattr(_build, "call", refuse)
     before = gram_pinv.launches
     v = torch.from_numpy(gram_stack(5, 8, seed=1))
     for x in (v, v[0]):
